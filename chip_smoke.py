@@ -36,7 +36,22 @@ Phases, each line flushed and stamped with elapsed seconds:
    zeros), with times (CUDA events) and the bound;
 7. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
-8. the kernels JSON line, then the result line.
+8. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
+   forms of the TPU layout probes under benchmarking/; what each
+   module's main() runs on the card, `probes.common.measure`) over
+   every variant of the four probe kernels at the probes' full shapes,
+   with the launch counts set to 0 before it and read after it: each
+   variant is launched and held against its plain version on the card
+   -- gathers bitwise equal, the K1 split's forward variants within
+   1e-5 of the largest value + 1e-7 and its backward variants within
+   1e-5 + 1e-12 -- and fails unless that check launched its kernel;
+   then it is timed (CUDA-event median of 10 runs) beside its bound,
+   its plain version and the library call. Every probe kernel must have
+   been launched by the timed runs (the checks' launches are left out
+   of the counts); none runs on the training path;
+9. the kernels JSON line (`launches`: the training window's count for
+   the six package kernels, the probes phase's for the probe kernels;
+   `launches_per_train_step` for all), then the result line.
 
 With --profile, a torch.profiler pass over one more render and one more
 training step prints the CUDA time per op (not part of the check).
@@ -88,6 +103,30 @@ KERNELS = {
 }
 FWD = ("fused_ray_reduce", "brick_reduce", "composite")
 
+# the probes' kernels: kernels line name -> (module of
+# ingp_tpu_torch.probes, launcher symbols, source, TPU kernel it
+# replaces, the variant whose numbers stand in the kernels line)
+PROBES = {
+    "probe_kernel_split": (
+        "kernel_split", ("ingp_probe_split_fwd", "ingp_probe_split_bwd"),
+        "ingp_tpu_torch/kernels/csrc/probe_split.cu",
+        "benchmarking/probe_kernel_split.py:185", "fwd full, random uid"),
+    "probe_row_gather": (
+        "row_layouts", ("ingp_probe_row_gather",),
+        "ingp_tpu_torch/kernels/csrc/probe_rows.cu",
+        "benchmarking/probe_row_layouts.py:147", "(256,) bfloat16"),
+    "probe_onchip_gather": (
+        "vmem_gather", ("ingp_probe_onchip_gather",),
+        "ingp_tpu_torch/kernels/csrc/probe_onchip.cu",
+        "benchmarking/probe_vmem_gather.py:89", "(a) l2, (8192, 256) f32"),
+    "probe_gather": (
+        "gather_layouts", ("ingp_probe_gather",),
+        "ingp_tpu_torch/kernels/csrc/probe_gather.cu",
+        "benchmarking/probe_gather_layouts.py:123",
+        "axis 0, (512, 128) -> (256, 128)"),
+}
+PROBE_ITERS = 10
+
 # the training variant whose time and bound stand in the kernels line
 PRIMARY = {"fused_ray_reduce": "density table, jac",
            "brick_reduce": "density table, jac",
@@ -127,9 +166,13 @@ SMALL = dict(density_L=4, rgb_L=4, density_log2T=12, rgb_log2T=12,
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the counts were last cleared."""
+    """Launches of each kernel (the probes' too) since the counts were
+    last cleared."""
     from ingp_tpu_torch.kernels import build
-    return {name: build.LAUNCHES[k[0]] for name, k in KERNELS.items()}
+    counts = {name: build.LAUNCHES[k[0]] for name, k in KERNELS.items()}
+    counts.update({name: sum(build.LAUNCHES[s] for s in p[1])
+                   for name, p in PROBES.items()})
+    return counts
 
 
 def clear_counts() -> None:
@@ -870,7 +913,7 @@ def phase_train(h):
     log(f"train: loss first step {losses[0]:.6f}, last step "
         f"{losses[-1]:.6f}; mean of the first 5 {np.mean(losses[:5]):.6f},"
         f" of the last 5 {np.mean(losses[-5:]):.6f}")
-    check_launched(launches, "training")
+    check_launched({k: launches[k] for k in KERNELS}, "training")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("non-finite training loss")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
@@ -950,6 +993,56 @@ def phase_train_reference():
         f"of their largest values")
 
 
+def phase_probes():
+    """Every variant of each probe kernel at the probe's full shapes,
+    against its plain version on the card (`probes.common.measure`
+    raises on a mismatch or when the check launched no kernel), timed
+    beside its bound, its plain version (one run) and the library call.
+    Returns ({kernels line name: {variant: numbers}}, {kernels line
+    name: launches of the timed runs})."""
+    import collections
+    import importlib
+    import torch
+    from ingp_tpu_torch.kernels import build
+    from ingp_tpu_torch.probes import common
+    from ingp_tpu_torch.probes import kernel_split
+    out = {}
+    checks = collections.Counter()
+    clear_counts()
+    for name, (mod, _, _, _, primary) in PROBES.items():
+        t = time.time()
+        module = importlib.import_module(f"ingp_tpu_torch.probes.{mod}")
+        kw = {}
+        if module is kernel_split:
+            kw["fwd_modes"] = list(kernel_split.FWD_MODES) + [
+                m for m in kernel_split.ROWPAIR_MODES if m != "full"]
+        cases = module.cases(torch.device(DEVICE), **kw)
+        res = {}
+        for c in cases:
+            res[c.variant] = common.measure(c, PROBE_ITERS, plain_iters=1)
+            checks[c.symbol] += res[c.variant]["check_launches"]
+            log(f"probe {common.line(c, res[c.variant])}")
+        if primary not in res:
+            raise AssertionError(f"{name}: no variant {primary!r}")
+        if module is kernel_split:
+            for line in kernel_split.piece_shares(
+                    {v: r["ms"] for v, r in res.items()}):
+                log(f"probe {line}")
+        del cases
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"probe {name}: {len(res)} variants checked in "
+            f"{time.time() - t:.2f} s")
+        out[name] = res
+    launches = {name: sum(build.LAUNCHES[s] - checks[s] for s in p[1])
+                for name, p in PROBES.items()}
+    log(f"probes: launches {launches} (the checks' "
+        f"{dict(sorted(checks.items()))} left out)")
+    check_launched({s: build.LAUNCHES[s] - checks[s]
+                    for p in PROBES.values() for s in p[1]}, "the probes")
+    return out, launches
+
+
 def phase_profile(system, ds, train_system):
     """CUDA time by op of one render and of one training step (a step
     off the grid-refresh cadence), each with its wall time."""
@@ -979,10 +1072,14 @@ def phase_profile(system, ds, train_system):
             log(f"  prof {what}: {line}")
 
 
-def kernel_rows(render_errs, train_checks, launches):
+def kernel_rows(render_errs, train_checks, launches, probes,
+                probe_launches):
     """The kernels line: each kernel's launches in the timed training
     steps, its largest error over every variant checked (render and
-    training), and the time and bound of its PRIMARY training variant."""
+    training), and the time and bound of its PRIMARY training variant;
+    then each probe kernel, its launches in the probes phase (per
+    training step: 0), its largest error over its variants and the
+    numbers of its PROBES variant."""
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         checks = train_checks[name]
@@ -991,9 +1088,23 @@ def kernel_rows(render_errs, train_checks, launches):
         p = checks[PRIMARY[name]]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_per_train_step":
+                         launches[name] / STEPS_MEASURE,
                      "max_abs_err": err, "ms": p["ms"],
                      "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
                      "bound_by": p["bound_by"], "library_ms": None})
+    for name, (_, _, source, replaces, primary) in PROBES.items():
+        p = probes[name][primary]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": probe_launches[name],
+                     "launches_per_train_step":
+                         launches[name] / STEPS_MEASURE,
+                     "max_abs_err": max(r["max_abs_err"]
+                                        for r in probes[name].values()),
+                     "ms": p["ms"], "plain_ms": p["plain_ms"],
+                     "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+                     "library_ms": p["library_ms"]})
     return rows
 
 
@@ -1014,11 +1125,14 @@ def main(argv):
     phase_reference()
     train_system, train_checks, launches = phase_train(bench_hparams())
     phase_train_reference()
+    probes, probe_launches = phase_probes()
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"kernels": kernel_rows(render_errs, train_checks,
-                                             launches)}), flush=True)
+                                             launches, probes,
+                                             probe_launches)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name, "count": count}}),
           flush=True)

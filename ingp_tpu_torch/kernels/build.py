@@ -42,6 +42,14 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P],
     "ingp_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P],
+    # the probes' kernels (ingp_tpu_torch/probes)
+    "ingp_probe_split_fwd": [_I, _I, _P, _I64, _P, _P, _P, _P, _P, _I64,
+                             _I, _I, _P],
+    "ingp_probe_split_bwd": [_I, _I, _P, _P, _I64, _P, _P, _P, _P, _P,
+                             _I64, _I, _I, _P],
+    "ingp_probe_row_gather": [_P, _I64, _I, _P, _P, _I64, _P],
+    "ingp_probe_onchip_gather": [_I, _P, _I, _I, _P, _P, _I64, _P],
+    "ingp_probe_gather": [_I, _P, _I64, _I, _P, _P, _I64, _I, _P],
 }
 
 # kernel launches so far, by launcher symbol; `launch` counts each one
@@ -76,14 +84,16 @@ def _nvcc() -> str:
 
 
 def build_library() -> str:
-    """Compile csrc/*.cu with one nvcc call; returns nvcc's resource
+    """Compile csrc/*.cu with one nvcc call (`--threads 0`: its steps
+    run on as many threads as the host has CPUs); returns nvcc's resource
     report (-Xptxas -v: registers, spills, shared memory per kernel).
     Raises RuntimeError with nvcc's stderr if the build fails."""
     out = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "--threads", "0", "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC",
            "-Xptxas", "-v", "-o", str(tmp)] + [str(p) for p in sources()]
     try:
         res = subprocess.run(cmd, check=True, capture_output=True,

@@ -136,6 +136,10 @@ def _check_ported(h):
         off.append("stream_head_frac")
     if not getattr(h, "stream_sort", True):
         off.append("stream_sort=False")
+    # cap auto-calibration, checkpoint resume and LPIPS (its weights are
+    # absent) would otherwise be dropped without a word
+    off += [k for k in ("stream_autocal", "ckpt_load", "eval_lpips")
+            if getattr(h, k, None)]
     if off:
         raise NotImplementedError(f"not ported yet: {off}")
 
@@ -152,7 +156,8 @@ class NeRFSystem:
       device: where everything lives (default CUDA; "cpu" runs the
         kernels' plain versions).
       seed: seed of the torch.Generator that draws the initial params,
-        the ray jitter and the grid refresh's draws.
+        the ray jitter and the grid refresh's draws (default:
+        `hparams.seed`, or 0 where the namespace has none).
       params: optional numpy tree {"model": ngp_init tree, "embedding_a":
         (N_images, embed_a_len)} (the JAX system's `params`) to start from.
     """
@@ -163,7 +168,7 @@ class NeRFSystem:
                   "normal")
 
     def __init__(self, hparams, train_dataset, test_dataset=None,
-                 device=None, seed=0, params=None):
+                 device=None, seed=None, params=None):
         _check_ported(hparams)
         self.hparams = hparams
         self.device = dev = resolve_device(device)
@@ -176,6 +181,8 @@ class NeRFSystem:
         train_dataset.batch_size = getattr(hparams, "batch_size", 8192)
         train_dataset.ray_sampling_strategy = getattr(
             hparams, "ray_sampling_strategy", "all_images")
+        if seed is None:
+            seed = getattr(hparams, "seed", 0)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         if params is None:
             n_img = train_dataset.n_images

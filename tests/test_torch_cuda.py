@@ -190,3 +190,30 @@ def test_k3_bwd_matches_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         _close(a, b)
+
+
+@pytest.mark.parametrize("probe", ["kernel_split", "row_layouts",
+                                   "vmem_gather", "gather_layouts"])
+def test_probe_kernels_match_plain(cuda, probe):
+    """Every variant of each probe kernel against its plain version on
+    the card, at small sizes (chip_smoke.py checks the probes' full
+    shapes): gathers bitwise, the K1 split to K1's tolerances."""
+    import importlib
+    from ingp_tpu_torch.probes import common
+    mod = importlib.import_module(f"ingp_tpu_torch.probes.{probe}")
+    kw = {"kernel_split": dict(groups=((24, 12), (16, 40)), n_rows=700,
+                               fwd_modes=["full", "shipping", "no-planes",
+                                          "no-expand", "no-dot",
+                                          "bf16-planes", "rowpair-2",
+                                          "rowpair-4"]),
+          "row_layouts": dict(shapes=(((256,), torch.bfloat16, 5000, 3000),
+                                      ((16, 128), torch.bfloat16, 700, 300),
+                                      ((8, 128), torch.float32, 700, 300))),
+          "vmem_gather": dict(rows=1000, n=3000),
+          "gather_layouts": dict(big_rows=1000)}[probe]
+    cases = mod.cases(cuda, **kw)
+    for c in cases:
+        n0 = build.LAUNCHES[c.symbol]
+        common.compare(c)
+        assert build.LAUNCHES[c.symbol] > n0, c.variant
+    torch.cuda.synchronize()

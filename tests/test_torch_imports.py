@@ -47,3 +47,11 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_probe_modules_are_covered():
+    """The probes' entry points are among the files the guards above
+    read and import."""
+    probes = {p.stem for p in FILES if p.parent.name == "probes"}
+    assert {"kernel_split", "row_layouts", "vmem_gather",
+            "gather_layouts"} <= probes
