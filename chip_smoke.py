@@ -30,10 +30,16 @@ Phases, each line flushed and stamped with elapsed seconds:
    finite and falling). The first step records the first inputs of
    every variant of every kernel that it launches (K1 and K2 on each
    table, with and without a jacobian; the grid refresh's K2; K3 with
-   rgb and with Ts only; the backward kernels of both tables); after
-   the untimed steps each variant is held against its plain version run
-   on the CPU (-9 cells and non-included samples must give exact
-   zeros), with times (CUDA events) and the bound;
+   rgb and with Ts only; the backward kernels of both tables), and the
+   later untimed steps count every kernel's calls by variant and shape;
+   after the untimed steps each variant is held against its plain
+   version run on the CPU (-9 cells and non-included samples must give
+   exact zeros), with times (CUDA events; the backward kernels into a
+   reused gradient) and the bound; then "before/after": the K1 backward
+   and K2 forward bodies that the current kernels replaced (the K1/K2
+   split's `full` variants) are held to the same outputs and timed
+   beside them on the recorded inputs, from the host and from a CUDA
+   graph;
 7. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
 8. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
@@ -42,7 +48,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    every variant of the four probe kernels at the probes' full shapes,
    with the launch counts set to 0 before it and read after it: each
    variant is launched and held against its plain version on the card
-   -- gathers bitwise equal, the K1 split's forward variants within
+   -- gathers bitwise equal, the K1/K2 split's forward variants within
    1e-5 of the largest value + 1e-7 and its backward variants within
    1e-5 + 1e-12 -- and fails unless that check launched its kernel;
    then it is timed (CUDA-event median of 10 runs) beside its bound,
@@ -61,6 +67,7 @@ check fails.
 """
 from __future__ import annotations
 
+import collections
 import inspect
 import json
 import subprocess
@@ -108,7 +115,8 @@ FWD = ("fused_ray_reduce", "brick_reduce", "composite")
 # replaces, the variant whose numbers stand in the kernels line)
 PROBES = {
     "probe_kernel_split": (
-        "kernel_split", ("ingp_probe_split_fwd", "ingp_probe_split_bwd"),
+        "kernel_split", ("ingp_probe_split_fwd", "ingp_probe_split_bwd",
+                         "ingp_probe_split_k2"),
         "ingp_tpu_torch/kernels/csrc/probe_split.cu",
         "benchmarking/probe_kernel_split.py:185", "fwd full, random uid"),
     "probe_row_gather": (
@@ -126,6 +134,15 @@ PROBES = {
         "axis 0, (512, 128) -> (256, 128)"),
 }
 PROBE_ITERS = 10
+
+# the bodies that the current K1 backward and K2 forward replaced (the
+# K1/K2 split's `full` variants, ingp_tpu_torch/probes/kernel_split.py),
+# timed beside them on these recorded training variants
+BEFORE_AFTER = (("fused_ray_reduce_bwd", "density table, jac"),
+                ("fused_ray_reduce_bwd", "rgb table, no jac"),
+                ("brick_reduce", "density table, jac"),
+                ("brick_reduce", "rgb table, no jac"),
+                ("brick_reduce", "density table, no jac"))
 
 # the training variant whose time and bound stand in the kernels line
 PRIMARY = {"fused_ray_reduce": "density table, jac",
@@ -232,15 +249,18 @@ def to_dev(x, dev):
 
 class Recorder:
     """Stands in for a function in the module that calls it, passes every
-    call through, and keeps the arguments (by parameter name) and the
-    result of the first call of each variant that `variant(arguments)`
-    names; None names no variant."""
+    call through, counts the calls by (variant, shape(arguments)) where
+    shape is given and, with keep, keeps the arguments (by parameter
+    name) and the result of the first call of each variant that
+    `variant(arguments)` names; None names no variant."""
 
-    def __init__(self, module, name, variant):
+    def __init__(self, module, name, variant, shape=None, keep=True):
         self.module, self.name, self.variant = module, name, variant
+        self.shape, self.keep = shape, keep
         self.fn = getattr(module, name)
         self.sig = inspect.signature(self.fn)
         self.calls = {}
+        self.counts = collections.Counter()
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
@@ -249,18 +269,23 @@ class Recorder:
         bound.apply_defaults()
         a = dict(bound.arguments)
         v = self.variant(a)
-        if v is not None and v not in self.calls:
-            self.calls[v] = (a, out)
+        if v is not None:
+            if self.shape is not None:
+                self.counts[(v, self.shape(a))] += 1
+            if self.keep and v not in self.calls:
+                self.calls[v] = (a, out)
         return out
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
 
 
-def record_kernels(cfg, names):
+def record_kernels(cfg, names, keep=True):
     """Recorders on the wrappers of the kernels `names`, keyed by
     variant: the table a K1/K2 call reads (by its row count) and whether
-    it has a jacobian; which outputs a K3 call makes."""
+    it has a jacobian; which outputs a K3 call makes. Calls are counted
+    by variant and shape: K1's (batch rows, slots), K2's (levels,
+    samples), K3's (rays, samples)."""
     from ingp_tpu_torch.kernels import brickreduce as k2
     from ingp_tpu_torch.kernels import composite as k3
     from ingp_tpu_torch.kernels import rayreduce as k1
@@ -289,7 +314,11 @@ def record_kernels(cfg, names):
         "composite_bwd": (k3, lambda a: "rgb and aux"),
     }
     wrapper = {"composite": "composite_fwd"}
-    return {n: Recorder(where[n][0], wrapper.get(n, n), where[n][1])
+    shape = {"fused_ray_reduce": "urows", "brick_reduce": "rows",
+             "composite": "sigmas", "fused_ray_reduce_bwd": "urows",
+             "brick_reduce_bwd": "rows", "composite_bwd": "sigmas"}
+    return {n: Recorder(where[n][0], wrapper.get(n, n), where[n][1],
+                        lambda a, k=shape[n]: tuple(a[k].shape), keep)
             for n in names}
 
 
@@ -467,13 +496,14 @@ def _corner_points(rows, lf, ok):
     return int(torch.unique(torch.cat(keys)).numel())
 
 
-def compare(name, tag, fn, plain, views, nbytes, flops, ref_dev, atol):
+def compare(name, tag, fn, plain, views, nbytes, flops, ref_dev, atol,
+            timed=None):
     """The kernel `fn()` against its plain version `plain(dev)` run on
     ref_dev, on views(outputs on the CPU) -> (compared, zeros): lists of
     tensors to hold within 1e-5 of the largest |plain value| (+ atol),
     and tensors that must be exact zeros in both. Times the kernel (20
-    runs) and the plain version on the card (3 runs). Returns the
-    numbers of a kernels line row."""
+    runs of `timed`, default fn) and the plain version on the card (3
+    runs). Returns the numbers of a kernels line row."""
     import torch
     out = fn()
     torch.cuda.synchronize()
@@ -486,7 +516,7 @@ def compare(name, tag, fn, plain, views, nbytes, flops, ref_dev, atol):
         if bool(a.any()) or bool(b.any()):
             raise AssertionError(f"{name} [{tag}]: -9 cells are not exact "
                                  f"zeros")
-    ms = cuda_ms(fn, 20)
+    ms = cuda_ms(timed or fn, 20)
     plain_ms = cuda_ms(lambda: plain(DEVICE), 3)
     bound_ms, by = bound_of(nbytes, flops)
     log(f"kernel {name} [{tag}]: max_abs_err {err:.3e} (tol {tol:.3e}, max "
@@ -638,6 +668,19 @@ def _zero_grad(a, dev):
                                 device=dev)}
 
 
+def _bwd_timed(name, tag, fn, a):
+    """A backward kernel's timed call: fn into one zeroed gradient reused
+    by every run (the step adds into its sink the same way). Also logs
+    the time with a freshly zeroed gradient allocated inside each call,
+    how the backward rows were timed before (it adds the fill of the
+    whole master, 212 MB for the density table)."""
+    grad = _zero_grad(a, DEVICE)
+    fresh = cuda_ms(lambda: fn(**_zero_grad(a, DEVICE)), 20)
+    log(f"kernel {name} [{tag}]: {fresh:.4f} ms with a freshly zeroed "
+        f"{tuple(a['grad'].shape)} gradient in each timed call")
+    return lambda: fn(**grad)
+
+
 def check_k1_bwd(a, tag):
     """K1 backward on captured arguments a, against the plain version on
     the CPU."""
@@ -666,7 +709,9 @@ def check_k1_bwd(a, tag):
         "fused_ray_reduce_bwd", tag,
         lambda: k1.fused_ray_reduce_bwd(**_zero_grad(a, DEVICE)),
         lambda dev: k1.fused_ray_reduce_bwd_plain(**_zero_grad(a, dev)),
-        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12)
+        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12,
+        _bwd_timed("fused_ray_reduce_bwd", tag, k1.fused_ray_reduce_bwd,
+                   a))
     # -9 written into every 7th cell, cotangents only on those cells:
     # the kernel and the plain version add exactly nothing
     mark = torch.zeros(cells, dtype=torch.bool, device=lf.device)
@@ -708,7 +753,8 @@ def check_k2_bwd(a, tag):
         "brick_reduce_bwd", tag,
         lambda: k2.brick_reduce_bwd(**_zero_grad(a, DEVICE)),
         lambda dev: k2.brick_reduce_bwd_plain(**_zero_grad(a, dev)),
-        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12)
+        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12,
+        _bwd_timed("brick_reduce_bwd", tag, k2.brick_reduce_bwd, a))
     mark = torch.zeros(cells, dtype=torch.bool, device=lf.device)
     mark[::7] = True
     mark = mark.reshape(Lw, Nn).T.repeat_interleave(F, 1)   # (N, Lw*F)
@@ -865,7 +911,8 @@ def phase_train(h):
     rng = np.random.default_rng(0)
     losses = []
     t = time.time()
-    for i in range(STEPS_WARMUP + STEPS_SETTLE):
+    n_untimed = STEPS_WARMUP + STEPS_SETTLE
+    for i in range(n_untimed):
         aux = system.training_step(tr.sample_batch(rng, BATCH))
         losses.append(aux["loss"])
         if i == 0:
@@ -879,11 +926,22 @@ def phase_train(h):
                 if PRIMARY[name] not in r.calls:
                     raise AssertionError(f"{name} [{PRIMARY[name]}] was "
                                          f"not called")
+            census = record_kernels(system.model_cfg, KERNELS, keep=False)
+    for r in census.values():
+        r.restore()
     torch.cuda.synchronize()
     log(f"train: {STEPS_WARMUP} warm-up + {STEPS_SETTLE} settling steps "
         f"{time.time() - t:.2f} s")
+    refresh = [s for s in range(1, n_untimed)
+               if s % system.UPDATE_INTERVAL == 0]
+    for name, r in census.items():
+        log(f"train: {name} calls in steps 1-{n_untimed - 1} (grid "
+            f"refreshes at steps {refresh}) by variant and shape: "
+            f"{ {f'{v} {sh}': n for (v, sh), n in sorted(r.counts.items())} }")
+    del census
     with torch.no_grad():
         checks = check_train_kernels(recs)
+        before_after(recs, checks)
     del recs
     batches = [stage(tr.sample_batch(rng, BATCH), system.device)
                for _ in range(STEPS_MEASURE)]
@@ -939,6 +997,70 @@ def check_train_kernels(recs):
         for tag, (a, _) in r.calls.items():
             out[name][tag] = CHECKS[name](a, f"train, {tag}")
     return out
+
+
+def before_after(recs, checks):
+    """The K1 backward and K2 forward bodies that the current kernels
+    replaced (the K1/K2 split's `full` variants) beside them, on
+    the first training step's recorded inputs (BEFORE_AFTER): the two
+    outputs held to each other at the check's tolerance, then each timed
+    in turns old, new, new, old (CUDA-event medians of 20 runs). One line
+    each: old ms, new ms, the bound, old / new, and both replayed from a
+    CUDA graph (the device's time without the host's dispatch of the
+    wrapper)."""
+    import torch
+    from ingp_tpu_torch.kernels import brickreduce as k2
+    from ingp_tpu_torch.kernels import rayreduce as k1
+    from ingp_tpu_torch.probes import kernel_split as ps
+    from ingp_tpu_torch.probes.common import graph_ms
+    for name, tag in BEFORE_AFTER:
+        a, _ = recs[name].calls[tag]
+        window = a["jac_lo"] == 0 and a["jac_hi"] in (None, a["F"])
+        if a["F"] != ps.F or not window:
+            raise AssertionError(f"{name} [{tag}]: the split's full body "
+                                 f"takes F = 8 and the full window")
+        if name == "fused_ray_reduce_bwd":
+            grad = torch.zeros_like(a["grad"])
+            args = (grad, a["urows"], a["uid"], a["lf"], a["dfeats"],
+                    a["djac"])
+
+            def old():
+                return ps.split_bwd("full", *args, bf16=a["bf16"])
+
+            def new():
+                return k1.fused_ray_reduce_bwd(*args, a["F"], a["jac_lo"],
+                                               a["jac_hi"], a["bf16"])
+            outs = []
+            for fn in (old, new):
+                grad.zero_()
+                outs.append([fn().clone()])
+            atol, what = 1e-12, "the replaced K1 bwd body"
+        else:
+            args = (a["table"], a["rows"], a["lf"])
+
+            def old():
+                return ps.split_k2("full", *args, a["with_jac"])
+
+            def new():
+                return k2.brick_reduce(*args, a["F"], a["with_jac"],
+                                       a["jac_lo"], a["jac_hi"])
+            outs = [[t for t in fn() if t is not None] for fn in (old, new)]
+            atol, what = 1e-7, "the replaced K2 fwd body"
+        err, scale = max_err(outs[1], outs[0])
+        if not err <= 1e-5 * scale + atol:
+            raise AssertionError(f"before/after {name} [{tag}]: the new "
+                                 f"kernel and {what} differ by {err:.3e}")
+        t = [cuda_ms(fn, 20) for fn in (old, new, new, old)]
+        g = [graph_ms(fn) for fn in (old, new)]
+        was, now = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        bound = checks[name][tag]["bound_ms"]
+        log(f"before/after {name} [train, {tag}]: old ({what}) "
+            f"{was:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), new {now:.4f} ms "
+            f"({t[1]:.4f}, {t[2]:.4f}), bound {bound:.4f} ms; old/new "
+            f"{was / now:.2f}x, new at {bound / now:.1%} of the bound; "
+            f"replayed from a CUDA graph (no host dispatch) old "
+            f"{g[0]:.4f} ms, new {g[1]:.4f} ms; outputs agree to "
+            f"{err:.3e} (max {scale:.3e})")
 
 
 def cpu_params(system):
@@ -1000,7 +1122,6 @@ def phase_probes():
     beside its bound, its plain version (one run) and the library call.
     Returns ({kernels line name: {variant: numbers}}, {kernels line
     name: launches of the timed runs})."""
-    import collections
     import importlib
     import torch
     from ingp_tpu_torch.kernels import build

@@ -47,6 +47,8 @@ _SIGNATURES = {
                              _I, _I, _P],
     "ingp_probe_split_bwd": [_I, _I, _P, _P, _I64, _P, _P, _P, _P, _P,
                              _I64, _I, _I, _P],
+    "ingp_probe_split_k2": [_I, _I, _P, _I64, _P, _P, _P, _P, _I, _I64,
+                            _P],
     "ingp_probe_row_gather": [_P, _I64, _I, _P, _P, _I64, _P],
     "ingp_probe_onchip_gather": [_I, _P, _I, _I, _P, _P, _I64, _P],
     "ingp_probe_gather": [_I, _P, _I64, _I, _P, _P, _I64, _I, _P],

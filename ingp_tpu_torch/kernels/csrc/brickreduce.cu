@@ -4,16 +4,35 @@
 // Replaces ingp_tpu/ops/pallas/brickreduce_pallas.py fused_brick_reduce
 // (_fwd_kernel), which reduces rows that XLA has already gathered into
 // an (n, W) block. Here the kernel takes the storage table, the
-// per-(level, sample) row ids and lf, and each thread gathers only the 8
-// corner points it needs of its row, so the (n, W) block is never
+// per-(level, sample) row ids and lf, and gathers only the 8 corner
+// points each cell needs of its row, so the (n, W) block is never
 // written to or read back from device memory.
 //
 // Bound on the H100: bytes. Per (level, sample) cell it reads one row
-// id, 8 floats of lf and 8 corner points (8*F values, 16-byte loads) of
+// id, 7 floats of lf and 8 corner points (8*F values, 16-byte loads) of
 // a table row that is mostly cold (fine levels are hashed), and writes
-// F (+3*Fj) floats. Threads are ordered level-fastest, so the F floats
-// a thread writes for consecutive levels of one sample are contiguous
-// in the (N, Lw*F) output layout that reduce_feats_jac returns.
+// F (+3*Fj) floats. The outputs are sample-major, (N, Lw*F) and
+// (3, N, Lw*Fj), while the inputs are level-major, (Lw, N) and
+// (8, Lw, N): a thread per cell in either order makes one side of the
+// kernel strided. So a block owns a tile of S consecutive samples x
+// all Lw levels (S*Lw = 256 cells) and moves both sides through shared
+// memory:
+//   1. rows and the 7 lf planes, sample-fastest: each warp load is
+//      coalesced at any Lw;
+//   2. a thread per cell, level-fastest, gathers its 8 corners
+//      (ingp_trilerp_row: every load issued before the sums) and puts
+//      its F (+3*Fj) results into shared memory in the output's
+//      (sample, level, feature) order. The staged inputs' level stride
+//      is padded so that these reads hit 32 distinct banks when Lw
+//      divides 32;
+//   3. the tile's outputs are contiguous slabs, S*Lw*F floats of feats
+//      and S*Lw*Fj of each jac plane: the block writes each with
+//      16-byte coalesced stores (scalar stores for an unaligned head
+//      and tail: the ragged last tile, a jac plane of odd length).
+// The old form (a thread per cell, level-fastest, reading lf at
+// stride N and writing each output float with a scalar store at a
+// 4*F-byte stride across the warp) survives as the K2 split probe's
+// `full` variant (probe_split.cu) for before/after timing.
 //
 // K2 backward (ingp_brick_reduce_bwd): replaces brickreduce_pallas.py
 // _fbr_bwd (_bwd_kernel), which writes the cotangent of the gathered
@@ -33,65 +52,191 @@
 
 namespace {
 
+constexpr int kK2Threads = 256;   // threads per block, and cells per tile
+
+// Samples per tile: S samples x Lw levels fill the block's 256 cells.
+__host__ __device__ __forceinline__ int k2_tile_samples(int Lw) {
+  return Lw >= kK2Threads ? 1 : kK2Threads / Lw;
+}
+
+// Stride, in floats, of one level's S staged inputs. A warp of the
+// level-fastest step 2 spans 32/Lw samples of each of the Lw levels;
+// a stride of 32/Lw (mod 32) banks puts its 32 reads in 32 banks.
+__host__ __device__ __forceinline__ int k2_level_stride(int Lw, int S) {
+  if (32 % Lw) return S | 1;
+  const int g = (32 / Lw) % 32;
+  return S + (((g - S) % 32) + 32) % 32;
+}
+
+__host__ __device__ __forceinline__ int k2_round4(int n) {
+  return (n + 3) & ~3;
+}
+
+// Shared memory of one block: the staged inputs (8 planes x Lw x P:
+// lf planes 0-6 and the row ids), then feats (S*Lw*F) and the 3 jac
+// planes (S*Lw*Fj each), each region a whole number of 16-byte words.
+__host__ __forceinline__ size_t k2_smem_bytes(int Lw, int F, int Fj,
+                                             bool jac) {
+  const int S = k2_tile_samples(Lw), P = k2_level_stride(Lw, S);
+  const int cells = S * Lw;
+  return sizeof(float) * ((size_t)8 * Lw * P + k2_round4(cells * F) +
+                          (jac ? 3 * (size_t)k2_round4(cells * Fj) : 0));
+}
+
+// F floats of registers into shared memory at dst (16-byte aligned for
+// F = 4, 8; 8-byte for F = 2).
+template <int F>
+__device__ __forceinline__ void k2_put(float* dst, const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < F / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i)
+      reinterpret_cast<float2*>(dst)[i] = make_float2(v[2 * i], v[2 * i + 1]);
+  }
+}
+
+// The block writes len floats of shared memory src to global dst: 16-byte
+// stores from dst's first 16-byte boundary on, scalar stores before it
+// and after the last whole word.
+__device__ __forceinline__ void k2_store_slab(float* __restrict__ dst,
+                                              const float* src, int len) {
+  const int head = min(
+      len, (int)(((16u - ((unsigned)(uintptr_t)dst & 15u)) & 15u) >> 2));
+  const int n4 = (len - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  if (head == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = s4[i];
+  } else {
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      const float* e = src + head + 4 * i;
+      d4[i] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  }
+  for (int i = head + 4 * n4 + threadIdx.x; i < len; i += blockDim.x)
+    dst[i] = src[i];
+}
+
 template <typename T, int F, bool JAC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kK2Threads)
     brick_reduce_fwd_kernel(const T* __restrict__ table, int64_t n_rows,
                             const int* __restrict__ rows,
                             const float* __restrict__ lf,
                             float* __restrict__ feats,
                             float* __restrict__ jac, int Lw, int64_t N,
                             int W, int jac_lo, int Fj) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(16) float k2_smem[];
+  const int S = k2_tile_samples(Lw), P = k2_level_stride(Lw, S);
+  const int cells = S * Lw;
+  const int plane = Lw * P;                   // one staged input plane
+  float* s_in = k2_smem;
+  float* s_feat = s_in + 8 * plane;
+  float* s_jac = s_feat + k2_round4(cells * F);
+  const int jstride = k2_round4(cells * Fj);
+  const int64_t n0 = (int64_t)blockIdx.x * S;
+  const int s_eff = (int)min((int64_t)S, N - n0);   // the ragged last tile
   const int64_t n_cells = (int64_t)Lw * N;
-  if (i >= n_cells) return;
-  const int64_t n = i / Lw;
-  const int l = (int)(i - n * Lw);
-  const int64_t c = (int64_t)l * N + n;  // index into (Lw, N) planes
-  const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
-  const int r = rows[c];
-  float feat[F], jx[F], jy[F], jz[F];
-  if (ingp_local_ok(lx, ly, lz) && r >= 0 && r < n_rows) {
-    ingp_trilerp_row<T, F, JAC>(table + (int64_t)r * W, (int)lx, (int)ly,
-                                (int)lz, lf[3 * n_cells + c],
-                                lf[4 * n_cells + c], lf[5 * n_cells + c],
-                                feat, jx, jy, jz);
-  } else {
+
+  // 1. the tile's row ids and lf planes 0-6, sample-fastest
+  for (int t = threadIdx.x; t < cells; t += blockDim.x) {
+    const int l = t / S, n = t - l * S;
+    if (n >= s_eff) continue;
+    const int64_t c = (int64_t)l * N + n0 + n;
+    const int o = l * P + n;
+    s_in[7 * plane + o] = __int_as_float(rows[c]);
 #pragma unroll
-    for (int f = 0; f < F; ++f) feat[f] = jx[f] = jy[f] = jz[f] = 0.f;
+    for (int p = 0; p < 7; ++p) s_in[p * plane + o] = lf[p * n_cells + c];
   }
-  float* fo = feats + n * ((int64_t)Lw * F) + (int64_t)l * F;
+  __syncthreads();
+
+  // 2. a thread per cell, level-fastest: t = n*Lw + l is also the cell's
+  // place in the tile's output slabs
+  for (int t = threadIdx.x; t < s_eff * Lw; t += blockDim.x) {
+    const int n = t / Lw, l = t - n * Lw;
+    const int o = l * P + n;
+    const float lx = s_in[o], ly = s_in[plane + o], lz = s_in[2 * plane + o];
+    const int r = __float_as_int(s_in[7 * plane + o]);
+    float feat[F], jx[F], jy[F], jz[F];
+    if (ingp_local_ok(lx, ly, lz) && r >= 0 && r < n_rows) {
+      ingp_trilerp_row<T, F, JAC>(table + (int64_t)r * W, (int)lx, (int)ly,
+                                  (int)lz, s_in[3 * plane + o],
+                                  s_in[4 * plane + o], s_in[5 * plane + o],
+                                  feat, jx, jy, jz);
+    } else {
 #pragma unroll
-  for (int f = 0; f < F; ++f) fo[f] = feat[f];
-  if (JAC) {
-    const float sc = lf[6 * n_cells + c];
-    const int64_t plane = N * (int64_t)Lw * Fj;
-    float* jo = jac + n * ((int64_t)Lw * Fj) + (int64_t)l * Fj;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      if (f < jac_lo || f >= jac_lo + Fj) continue;
-      const int o = f - jac_lo;
-      jo[o] = jx[f] * sc;
-      jo[plane + o] = jy[f] * sc;
-      jo[2 * plane + o] = jz[f] * sc;
+      for (int f = 0; f < F; ++f) feat[f] = jx[f] = jy[f] = jz[f] = 0.f;
     }
+    k2_put<F>(s_feat + t * F, feat);
+    if (JAC) {
+      const float sc = s_in[6 * plane + o];
+      if (jac_lo == 0 && Fj == F) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          jx[f] *= sc;
+          jy[f] *= sc;
+          jz[f] *= sc;
+        }
+        k2_put<F>(s_jac + t * F, jx);
+        k2_put<F>(s_jac + jstride + t * F, jy);
+        k2_put<F>(s_jac + 2 * jstride + t * F, jz);
+      } else {
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          if (f < jac_lo || f >= jac_lo + Fj) continue;
+          const int e = t * Fj + f - jac_lo;
+          s_jac[e] = jx[f] * sc;
+          s_jac[jstride + e] = jy[f] * sc;
+          s_jac[2 * jstride + e] = jz[f] * sc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile's contiguous output slabs
+  k2_store_slab(feats + n0 * Lw * F, s_feat, s_eff * Lw * F);
+  if (JAC) {
+    const int64_t jplane = N * (int64_t)Lw * Fj;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      k2_store_slab(jac + i * jplane + n0 * Lw * Fj, s_jac + i * jstride,
+                    s_eff * Lw * Fj);
   }
 }
 
+template <typename T, int F, bool JAC>
+int launch_fwd(const void* table, int64_t n_rows, const void* rows,
+               const void* lf, void* feats, void* jac, int Lw, int64_t N,
+               int W, int jac_lo, int Fj, cudaStream_t stream) {
+  const size_t bytes = k2_smem_bytes(Lw, F, Fj, JAC);
+  auto kernel = brick_reduce_fwd_kernel<T, F, JAC>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int S = k2_tile_samples(Lw);
+  const unsigned blocks = (unsigned)((N + S - 1) / S);
+  kernel<<<blocks, kK2Threads, bytes, stream>>>(
+      (const T*)table, n_rows, (const int*)rows, (const float*)lf,
+      (float*)feats, (float*)jac, Lw, N, W, jac_lo, Fj);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int F>
-void launch(const void* table, int64_t n_rows, const void* rows,
-            const void* lf, void* feats, void* jac, int Lw, int64_t N,
-            int W, int with_jac, int jac_lo, int Fj, cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks =
-      (unsigned)(((int64_t)Lw * N + threads - 1) / threads);
-  if (with_jac)
-    brick_reduce_fwd_kernel<T, F, true><<<blocks, threads, 0, stream>>>(
-        (const T*)table, n_rows, (const int*)rows, (const float*)lf,
-        (float*)feats, (float*)jac, Lw, N, W, jac_lo, Fj);
-  else
-    brick_reduce_fwd_kernel<T, F, false><<<blocks, threads, 0, stream>>>(
-        (const T*)table, n_rows, (const int*)rows, (const float*)lf,
-        (float*)feats, (float*)jac, Lw, N, W, jac_lo, Fj);
+int launch(const void* table, int64_t n_rows, const void* rows,
+           const void* lf, void* feats, void* jac, int Lw, int64_t N, int W,
+           int with_jac, int jac_lo, int Fj, cudaStream_t stream) {
+  return with_jac ? launch_fwd<T, F, true>(table, n_rows, rows, lf, feats,
+                                           jac, Lw, N, W, jac_lo, Fj, stream)
+                  : launch_fwd<T, F, false>(table, n_rows, rows, lf, feats,
+                                            jac, Lw, N, W, jac_lo, Fj,
+                                            stream);
 }
 
 template <typename T>
@@ -99,15 +244,14 @@ int dispatch(int F, const void* table, int64_t n_rows, const void* rows,
              const void* lf, void* feats, void* jac, int Lw, int64_t N,
              int W, int with_jac, int jac_lo, int Fj, cudaStream_t s) {
   switch (F) {
-    case 2: launch<T, 2>(table, n_rows, rows, lf, feats, jac, Lw, N, W,
-                         with_jac, jac_lo, Fj, s); break;
-    case 4: launch<T, 4>(table, n_rows, rows, lf, feats, jac, Lw, N, W,
-                         with_jac, jac_lo, Fj, s); break;
-    case 8: launch<T, 8>(table, n_rows, rows, lf, feats, jac, Lw, N, W,
-                         with_jac, jac_lo, Fj, s); break;
+    case 2: return launch<T, 2>(table, n_rows, rows, lf, feats, jac, Lw, N,
+                                W, with_jac, jac_lo, Fj, s);
+    case 4: return launch<T, 4>(table, n_rows, rows, lf, feats, jac, Lw, N,
+                                W, with_jac, jac_lo, Fj, s);
+    case 8: return launch<T, 8>(table, n_rows, rows, lf, feats, jac, Lw, N,
+                                W, with_jac, jac_lo, Fj, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <int F, bool JAC, bool BF16>

@@ -1,5 +1,6 @@
-// K1 split probe: the K1 forward and backward with one piece stubbed at a
-// time, to measure what share of their time each piece takes.
+// K1/K2 split probe: the K1 forward and backward and the K2 forward with
+// one piece stubbed at a time, to measure what share of their time each
+// piece takes.
 //
 // Replaces benchmarking/probe_kernel_split.py (make_kernel, the Pallas
 // kernel of its `run`), which times the TPU's K1 forward with its
@@ -19,11 +20,12 @@
 //                 corners' loads with their sums
 //     BF16_PLANES weights and products in __nv_bfloat162, sums in f32
 //     FULL with P > 1: P batch rows per block (rowpair-P)
-//   backward (ray_reduce_bwd_kernel, a block per batch row, a thread per
-//   lane, (27F + 31) / 32 * 32 = 224 threads, f32 cotangents; with BF16
-//   each cell's lane cotangent and each run's sum are rounded to bf16, as
-//   the shipping kernel does for a bf16 table)
-//     FULL        the shipping kernel's body at F = Fj = 8
+//   backward (the K1 backward before the chunked, run-parallel form of
+//   rayreduce.cu replaced it: a block per batch row, a thread per lane,
+//   (27F + 31) / 32 * 32 = 224 threads walking all K cells, f32
+//   cotangents; with BF16 each cell's lane cotangent and each run's sum
+//   are rounded to bf16, as for a bf16 table)
+//     FULL        that body at F = Fj = 8
 //     NO_ATOMICS  each run's sum is stored into scratch[b*U + slot]
 //                 instead of added into the master with atomicAdd
 //     NO_PLANES   weight 1 and derivative signs, as forward
@@ -34,9 +36,26 @@
 //                 df and dj into shared memory (coalesced) and walks
 //                 them from there: the same work without a global load
 //                 on each step of the walk
+//   FULL also runs without dj (null): that body's no-jacobian form (the
+//   rgb table's backward). The replaced bodies stay here for the
+//   before/after timing on the same inputs (chip_smoke.py).
 //
-// Bound on the H100: bytes, as rayreduce.cu. Nothing here ships: the
-// wrapper is ingp_tpu_torch/probes/kernel_split.py.
+//   K2 forward (brick_reduce_fwd_kernel before the tiled form of
+//   brickreduce.cu replaced it: a thread per (level, sample) cell,
+//   level-fastest, lf read at stride N, each output float a scalar store
+//   at a 4*F-byte stride across the warp), bf16 table, F = Fj = 8, with
+//   and without the jacobian:
+//     K2_FULL          that body, unchanged
+//     K2_NO_CORNERS    every cell reads the corners of cell (0, 0, 0)
+//                      of row 0 (one fixed, cached row): no corner
+//                      gather
+//     K2_NO_JAC_STORES the jacobian is not stored (so the compiler drops
+//                      its arithmetic too)
+//     K2_COALESCED     the features stored feature-major, (F, Lw*N) at
+//                      cell i = n*Lw + l, coalesced along i
+//
+// Bound on the H100: bytes, as rayreduce.cu and brickreduce.cu. Nothing
+// here ships: the wrapper is ingp_tpu_torch/probes/kernel_split.py.
 #include "trilerp.cuh"
 
 namespace {
@@ -52,6 +71,8 @@ enum FwdMode { FULL = 0, NO_PLANES = 1, NO_EXPAND = 2, NO_DOT = 3,
                BF16_PLANES = 4 };
 enum BwdMode { B_FULL = 0, B_NO_ATOMICS = 1, B_NO_PLANES = 2, B_WALK_1 = 3,
                B_STAGED = 4 };
+enum K2Mode { K2_FULL = 0, K2_NO_CORNERS = 1, K2_NO_JAC_STORES = 2,
+              K2_COALESCED = 3 };
 
 // acc[f] += bf16(bf16(w) * v[f]): the product of the weight rounded to
 // bf16 and a bf16 feature pair, rounded to bf16, summed in f32.
@@ -185,7 +206,7 @@ int launch_fwd(const void* table, int64_t n_rows, const void* urows,
 
 // No __launch_bounds__, as ray_reduce_bwd_kernel: the same register
 // allocation as the shipping kernel.
-template <int MODE, bool BF16>
+template <int MODE, bool BF16, bool JAC = true>
 __global__ void split_bwd_kernel(float* __restrict__ grad, float* __restrict__ scratch,
                      int64_t n_rows, const int* __restrict__ urows,
                      const int* __restrict__ uid,
@@ -274,9 +295,14 @@ __global__ void split_bwd_kernel(float* __restrict__ grad, float* __restrict__ s
       ingp_point_planes(a, bb, e, ld_lf(3, k, i), ld_lf(4, k, i),
                         ld_lf(5, k, i), w, d1, d2, d3);
     }
-    const float jx = ld_dj(f, k, i), jy = ld_dj(kF + f, k, i),
-                jz = ld_dj(2 * kF + f, k, i), sc = ld_lf(6, k, i);
-    float v = ingp_lane_ct(ld_df(f, k, i), w, true, jx, jy, jz, d1, d2, d3,
+    float jx = 0.f, jy = 0.f, jz = 0.f, sc = 0.f;
+    if (JAC) {
+      jx = ld_dj(f, k, i);
+      jy = ld_dj(kF + f, k, i);
+      jz = ld_dj(2 * kF + f, k, i);
+      sc = ld_lf(6, k, i);
+    }
+    float v = ingp_lane_ct(ld_df(f, k, i), w, JAC, jx, jy, jz, d1, d2, d3,
                            sc);
     if (BF16) v = ingp_round_bf16(v);
     acc = __fadd_rn(acc, v);
@@ -294,13 +320,93 @@ int launch_bwd(int bf16, void* grad, void* scratch, int64_t n_rows,
   (float*)grad, (float*)scratch, n_rows, (const int*)urows,               \
       (const int*)uid, (const float*)lf, (const float*)df,                \
       (const float*)dj, n_cells, K, U
-  if (bf16)
+  if constexpr (MODE == B_FULL) {
+    if (dj == nullptr) {
+      if (bf16)
+        split_bwd_kernel<MODE, true, false>
+            <<<(unsigned)B, kBwdThreads, 0, s>>>(BWD_ARGS);
+      else
+        split_bwd_kernel<MODE, false, false>
+            <<<(unsigned)B, kBwdThreads, 0, s>>>(BWD_ARGS);
+      return (int)cudaGetLastError();
+    }
+  }
+  if (bf16) {
     split_bwd_kernel<MODE, true><<<(unsigned)B, kBwdThreads, 0, s>>>(
         BWD_ARGS);
-  else
+  } else {
     split_bwd_kernel<MODE, false><<<(unsigned)B, kBwdThreads, 0, s>>>(
         BWD_ARGS);
+  }
 #undef BWD_ARGS
+  return (int)cudaGetLastError();
+}
+
+// brick_reduce_fwd_kernel before the tiled form (brickreduce.cu), with the
+// K2Mode stubs.
+template <int MODE, typename T, int F, bool JAC>
+__global__ void __launch_bounds__(256)
+    split_k2_kernel(const T* __restrict__ table, int64_t n_rows,
+                    const int* __restrict__ rows,
+                    const float* __restrict__ lf, float* __restrict__ feats,
+                    float* __restrict__ jac, int Lw, int64_t N, int W,
+                    int jac_lo, int Fj) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n_cells = (int64_t)Lw * N;
+  if (i >= n_cells) return;
+  const int64_t n = i / Lw;
+  const int l = (int)(i - n * Lw);
+  const int64_t c = (int64_t)l * N + n;  // index into (Lw, N) planes
+  const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
+  const int r = rows[c];
+  float feat[F], jx[F], jy[F], jz[F];
+  if (ingp_local_ok(lx, ly, lz) && r >= 0 && r < n_rows) {
+    if constexpr (MODE == K2_NO_CORNERS)   // row 0, cell (0, 0, 0)
+      ingp_trilerp_row<T, F, JAC>(table, 0, 0, 0, lf[3 * n_cells + c],
+                                  lf[4 * n_cells + c], lf[5 * n_cells + c],
+                                  feat, jx, jy, jz);
+    else
+      ingp_trilerp_row<T, F, JAC>(table + (int64_t)r * W, (int)lx, (int)ly,
+                                  (int)lz, lf[3 * n_cells + c],
+                                  lf[4 * n_cells + c], lf[5 * n_cells + c],
+                                  feat, jx, jy, jz);
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) feat[f] = jx[f] = jy[f] = jz[f] = 0.f;
+  }
+  if constexpr (MODE == K2_COALESCED) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) feats[f * n_cells + i] = feat[f];
+  } else {
+    float* fo = feats + n * ((int64_t)Lw * F) + (int64_t)l * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) fo[f] = feat[f];
+  }
+  if (JAC && MODE != K2_NO_JAC_STORES) {
+    const float sc = lf[6 * n_cells + c];
+    const int64_t plane = N * (int64_t)Lw * Fj;
+    float* jo = jac + n * ((int64_t)Lw * Fj) + (int64_t)l * Fj;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      if (f < jac_lo || f >= jac_lo + Fj) continue;
+      const int o = f - jac_lo;
+      jo[o] = jx[f] * sc;
+      jo[plane + o] = jy[f] * sc;
+      jo[2 * plane + o] = jz[f] * sc;
+    }
+  }
+}
+
+template <int MODE, bool JAC>
+int launch_k2(const void* table, int64_t n_rows, const void* rows,
+              const void* lf, void* feats, void* jac, int Lw, int64_t N,
+              cudaStream_t s) {
+  const int threads = 256;
+  const unsigned blocks =
+      (unsigned)(((int64_t)Lw * N + threads - 1) / threads);
+  split_k2_kernel<MODE, __nv_bfloat16, kF, JAC><<<blocks, threads, 0, s>>>(
+      (const __nv_bfloat16*)table, n_rows, (const int*)rows,
+      (const float*)lf, (float*)feats, (float*)jac, Lw, N, kW, 0, kF);
   return (int)cudaGetLastError();
 }
 
@@ -336,7 +442,8 @@ extern "C" int ingp_probe_split_fwd(int mode, int rows_per_block,
 // grad (n_rows, 256) f32, accumulated into (all modes but NO_ATOMICS);
 // scratch (B*U, 256) f32, stored into (NO_ATOMICS only, else null);
 // urows (B, U), uid (B, K) int32; lf (8, B, K), df (8, B, K),
-// dj (24, B, K) f32; K <= 256 for STAGED. mode: BwdMode; bf16: round
+// dj (24, B, K) f32, or null for FULL (no jacobian cotangent);
+// K <= 256 for STAGED. mode: BwdMode; bf16: round
 // each cell's lane cotangent and each run's sum to bf16. Returns
 // cudaGetLastError().
 extern "C" int ingp_probe_split_bwd(int mode, int bf16, void* grad,
@@ -347,6 +454,7 @@ extern "C" int ingp_probe_split_bwd(int mode, int bf16, void* grad,
                                     void* stream) {
   if (B * (int64_t)K == 0) return 0;
   if (mode == B_STAGED && K > kKMax) return (int)cudaErrorInvalidValue;
+  if (dj == nullptr && mode != B_FULL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define ARGS bf16, grad, scratch, n_rows, urows, uid, lf, df, dj, B, K, U, s
   switch (mode) {
@@ -355,6 +463,36 @@ extern "C" int ingp_probe_split_bwd(int mode, int bf16, void* grad,
     case B_NO_PLANES: return launch_bwd<B_NO_PLANES>(ARGS);
     case B_WALK_1: return launch_bwd<B_WALK_1>(ARGS);
     case B_STAGED: return launch_bwd<B_STAGED>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
+}
+
+// table (n_rows, 256) bf16; rows (Lw, N) int32; lf (8, Lw, N) f32;
+// feats (N, Lw*8) f32, or (8, N*Lw) for K2_COALESCED; jac (3, N, Lw*8)
+// f32 with with_jac (not written by K2_NO_JAC_STORES, which needs
+// with_jac), else null. mode: K2Mode. Returns cudaGetLastError().
+extern "C" int ingp_probe_split_k2(int mode, int with_jac,
+                                   const void* table, int64_t n_rows,
+                                   const void* rows, const void* lf,
+                                   void* feats, void* jac, int Lw,
+                                   int64_t N, void* stream) {
+  if ((int64_t)Lw * N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ARGS table, n_rows, rows, lf, feats, jac, Lw, N, s
+  if (with_jac) {
+    switch (mode) {
+      case K2_FULL: return launch_k2<K2_FULL, true>(ARGS);
+      case K2_NO_CORNERS: return launch_k2<K2_NO_CORNERS, true>(ARGS);
+      case K2_NO_JAC_STORES: return launch_k2<K2_NO_JAC_STORES, true>(ARGS);
+      case K2_COALESCED: return launch_k2<K2_COALESCED, true>(ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (mode) {
+    case K2_FULL: return launch_k2<K2_FULL, false>(ARGS);
+    case K2_NO_CORNERS: return launch_k2<K2_NO_CORNERS, false>(ARGS);
+    case K2_COALESCED: return launch_k2<K2_COALESCED, false>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS

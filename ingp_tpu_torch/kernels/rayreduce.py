@@ -11,8 +11,10 @@ the source's note).
 The backward (`fused_ray_reduce_bwd`, `csrc/rayreduce.cu`) replaces
 `_frr_bwd` of rayreduce_pallas.py without its one-hot MXU transpose:
 per batch row it sums each run of cells that share a unique slot (the
-grouped plan's slot ids never decrease along a row) and adds the slot's
-row into the f32 master gradient at its table row. `RayReduceFn` binds
+grouped plan's slot ids never decrease along a row) in cell order and
+adds the slot's row into the f32 master gradient at its table row. The
+kernel computes every cell's lane cotangents in parallel and sums all
+runs of a row in parallel (see the source's note). `RayReduceFn` binds
 forward and backward into a `torch.autograd.Function`.
 """
 from __future__ import annotations
@@ -174,7 +176,9 @@ def fused_ray_reduce_bwd(grad, urows, uid, lf, dfeats, djac, F: int,
                          f"{grad.device}")
     Fj = _jac_window(F, jac_lo, jac_hi)
     dev = grad.device
-    build.check_cuda_tensor("grad", grad, (torch.float32,), 2, dev)
+    # 16-byte rows: the kernel adds each lattice point's F lanes with
+    # vector atomics
+    build.check_cuda_tensor("grad", grad, (torch.float32,), 2, dev, align=16)
     build.check_cuda_tensor("urows", urows, (torch.int32,), 2, dev)
     build.check_cuda_tensor("uid", uid, (torch.int32,), 2, dev)
     build.check_cuda_tensor("lf", lf, (torch.float32,), 3, dev)
@@ -182,7 +186,7 @@ def fused_ray_reduce_bwd(grad, urows, uid, lf, dfeats, djac, F: int,
     B, U = urows.shape
     K = uid.shape[1]
     W = grad.shape[1]
-    if F not in SUPPORTED_F or W < 27 * F:
+    if F not in SUPPORTED_F or W < 27 * F or W % 4:
         raise ValueError(f"fused_ray_reduce_bwd: unsupported F={F}, W={W}")
     if (uid.shape[0] != B or lf.shape != (8, B, K)
             or dfeats.shape != (F, B, K)):

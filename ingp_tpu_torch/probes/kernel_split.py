@@ -1,11 +1,12 @@
-"""K1 split probe: the K1 forward and backward with one piece stubbed at a
-time, at the grouped stream's shapes.
+"""K1/K2 split probe: the K1 forward and backward and the K2 forward with
+one piece stubbed at a time, at the grouped stream's and training's
+shapes.
 
 The Hopper counterpart of benchmarking/probe_kernel_split.py, which
 times the TPU's K1 forward with its weight planes, one-hot expand or
-select dot stubbed. Here the pieces are those of the port's K1
-(kernels/csrc/rayreduce.cu), all variants template flags of one source,
-kernels/csrc/probe_split.cu:
+select dot stubbed. Here the pieces are those of the port's K1 and K2
+(kernels/csrc/rayreduce.cu, brickreduce.cu), all variants template
+flags of one source, kernels/csrc/probe_split.cu:
 
   forward   full (the shipping kernel's body at F = Fj = 8), shipping
             (the shipping kernel itself, `kernels.rayreduce`
@@ -17,21 +18,35 @@ kernels/csrc/probe_split.cu:
             bf16-planes (weights and products in bf16, sums in f32);
             with PROBE_ROWPAIR=1, as the TPU probe: full, rowpair-2 and
             rowpair-4 (2 or 4 batch rows per block).
-  backward  full (the shipping kernel's body for a bf16 table: 224
-            threads, each cell's lane cotangent and each run's sum
-            rounded to bf16), shipping (`fused_ray_reduce_bwd` with
-            bf16=True on the same inputs), no-atomics (each run's sum
-            stored into a scratch row per (batch row, slot) instead of
-            added into the master with atomicAdd), no-planes, walk-1
-            (each block walks one cell, not 256: it takes away all
-            per-cell work of the other 255 and leaves the launch, the
-            block's set-up and one flush), staged (full, after the block
-            copies its cells' uid, lf and cotangents into shared memory:
-            the same work without a global load inside the walk).
+  backward  full (the body the current kernel replaced, for a bf16
+            table: a block per row, a thread per lane walking all 256
+            cells, 224 threads, each cell's lane cotangent and each
+            run's sum rounded to bf16; also without a jacobian
+            cotangent, the rgb table's form), shipping
+            (`fused_ray_reduce_bwd` with bf16=True on the same inputs),
+            no-atomics (each run's sum stored into a scratch row per
+            (batch row, slot) instead of added into the master with
+            atomicAdd), no-planes, walk-1 (each block walks one cell,
+            not 256: it takes away all per-cell work of the other 255
+            and leaves the launch, the block's set-up and one flush),
+            staged (full, after the block copies its cells' uid, lf and
+            cotangents into shared memory: the same work without a
+            global load inside the walk).
+  K2 fwd    full (the body the tiled kernel replaced: a thread per
+            (level, sample) cell, level-fastest, scalar output stores
+            at a 32-byte stride across the warp), shipping
+            (`kernels.brickreduce` `brick_reduce` on the same inputs),
+            no-corners (every cell reads the corners of cell (0, 0, 0)
+            of row 0, one fixed, cached row: no corner gather),
+            no-jac-stores (the jacobian is not stored, so its
+            arithmetic goes too), coalesced-feats (the features stored
+            feature-major, coalesced along the cells).
 
 The TPU probe's `factored-E` (point-domain weights expanded to lanes by
 an MXU dot) has no counterpart: the CUDA kernel builds each corner's
-weight once already.
+weight once already. `chip_smoke.py` times the replaced K1 backward and
+K2 forward bodies beside the current kernels on training's recorded
+inputs.
 
 Shapes are the probe's: T = 768, groups (rows, U) = (3840, 96), (2304,
 128), (1536, 176), 256 cells per row, 256-lane rows of F = 8 features,
@@ -42,7 +57,10 @@ uid sorted along the row (non-decreasing, as the sorted training stream
 gives it). lf is uniform in [0, 1) in all 8 planes, as the probe draws
 it: every local coordinate truncates to 0, so each cell reads the 8
 corner points of its brick's cell (0, 0, 0), which `ingp_local_ok`
-accepts.
+accepts. The K2 split runs at training's two K2 shapes: rows
+(4, 196,608) with the jacobian and (16, 65,536) (the grid refresh)
+without, drawn over a table of the bench's density shape (207,295 x 256
+bf16), lf over all 8 brick cells.
 
 Run on the card: python -m ingp_tpu_torch.probes.kernel_split
 (--device cpu runs the plain versions only).
@@ -54,7 +72,7 @@ import sys
 
 import torch
 
-from ..kernels import build, rayreduce
+from ..kernels import brickreduce, build, rayreduce
 from ..kernels.brickreduce import (PLAIN_CHUNK, _lane_points, round_bf16,
                                    trilerp_rows_bwd_plain,
                                    trilerp_rows_plain)
@@ -72,6 +90,14 @@ ROWPAIR_MODES = {"full": (0, 1), "rowpair-2": (0, 2), "rowpair-4": (0, 4)}
 BWD_MODES = {"full": 0, "shipping": None, "no-atomics": 1, "no-planes": 2,
              "walk-1": 3, "staged": 4}
 UIDS = ("random", "sorted")
+# the K2 split: (group name, Lw, N, with the jacobian) at training's K2
+# shapes, rows from a table of the bench's density shape
+K2_GROUPS = (("Lw 4, jac", 4, 196_608, True),
+             ("Lw 16, no jac", 16, 65_536, False))
+K2_ROWS = 207_295
+# mode -> kernel mode; "shipping" runs kernels/brickreduce.py
+K2_MODES = {"full": 0, "shipping": None, "no-corners": 1,
+            "no-jac-stores": 2, "coalesced-feats": 3}
 _CORNERS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
 
 
@@ -199,8 +225,9 @@ def split_fwd_plain(mode: str, table, urows, uid, lf):
 def split_bwd(mode: str, grad, urows, uid, lf, dfeats, djac,
               scratch=None, bf16: bool = False):
     """K1's backward with the piece `mode` stubbed (BWD_MODES), f32
-    cotangents; bf16: round each cell's lane cotangent and each run's sum
-    to bf16 (the shipping kernel's rounding for a bf16 table). Adds into
+    cotangents (djac may be None for "full": no jacobian cotangent);
+    bf16: round each cell's lane cotangent and each run's sum to bf16
+    (the shipping kernel's rounding for a bf16 table). Adds into
     grad (n_rows, 256) f32 in place and returns it; "no-atomics" instead
     stores each run's sum into scratch (B*U, 256) f32 at row b*U + slot
     and returns scratch. uid may have runs in any order (a slot that
@@ -221,7 +248,8 @@ def split_bwd(mode: str, grad, urows, uid, lf, dfeats, djac,
     Kc = uid.shape[1]
     _check("grad", grad, (torch.float32,), (grad.shape[0], W), dev)
     _check("dfeats", dfeats, (torch.float32,), (F, B, Kc), dev)
-    _check("djac", djac, (torch.float32,), (3 * F, B, Kc), dev)
+    if djac is not None or mode != "full":
+        _check("djac", djac, (torch.float32,), (3 * F, B, Kc), dev)
     if mode == "no-atomics":
         _check("scratch", scratch, (torch.float32,), (B * U, W), dev)
     with torch.cuda.device(dev):
@@ -270,6 +298,8 @@ def split_bwd_plain(mode: str, grad, urows, uid, lf, dfeats, djac,
     the slot's table row, or for no-atomics stored over the slot's
     scratch row on the lanes where it is not zero."""
     BWD_MODES[mode]                 # a KeyError names an unknown mode
+    if djac is None and mode != "full":
+        raise ValueError(f"bwd {mode} needs a jacobian cotangent")
     uid, lf, dfeats, djac = _cells(mode, uid, lf, dfeats, djac)
     B, U = urows.shape
     Kc = uid.shape[1]
@@ -287,6 +317,7 @@ def split_bwd_plain(mode: str, grad, urows, uid, lf, dfeats, djac,
         lfc = torch.cat([torch.where(valid_f[sl], lfc[:3].trunc(), -9.0),
                          lfc[3:]])
         dg[sl] = _lane_ct(mode, lfc, dfeats.reshape(F, n)[:, sl].T,
+                          None if djac is None else
                           djac.reshape(3, F, n)[:, :, sl].transpose(1, 2))
     if bf16:
         dg = round_bf16(dg)
@@ -319,6 +350,88 @@ def split_bwd_plain(mode: str, grad, urows, uid, lf, dfeats, djac,
         acc = torch.where(v[:, None], acc + dg[:, k], acc)
     flush(cur >= 0)
     return scratch if mode == "no-atomics" else grad
+
+
+def split_k2(mode: str, table, rows, lf, with_jac: bool = True):
+    """K2's forward before the tiled kernel (`full`), with the piece `mode`
+    stubbed (K2_MODES; "shipping" runs `brickreduce.brick_reduce`).
+    table (n_rows, 256) bf16; rows (Lw, N) int32; lf (8, Lw, N) f32.
+    Returns (feats (N, Lw*8), jac (3, N, Lw*8) or None); coalesced-feats
+    gives feats as (8, N*Lw) (feature-major, cell n*Lw + l) and
+    no-jac-stores no jac. CPU tensors run `split_k2_plain`."""
+    if table.device.type == "cpu":
+        return split_k2_plain(mode, table, rows, lf, with_jac)
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"split_k2: unsupported device {dev}")
+    code = _k2_mode(mode, with_jac)
+    if code is None:
+        return brickreduce.brick_reduce(table, rows, lf, F, with_jac)
+    Lw, Nn = rows.shape
+    _check("table", table, (torch.bfloat16,), (table.shape[0], W), dev,
+           align=16)
+    _check("rows", rows, (torch.int32,), (Lw, Nn), dev)
+    _check("lf", lf, (torch.float32,), (8, Lw, Nn), dev)
+    feats = torch.empty((F, Nn * Lw) if mode == "coalesced-feats"
+                        else (Nn, Lw * F), device=dev)
+    jac = torch.empty((3, Nn, Lw * F), device=dev) \
+        if with_jac and mode != "no-jac-stores" else None
+    with torch.cuda.device(dev):
+        build.launch("ingp_probe_split_k2", code, int(with_jac),
+                     build.ptr(table), table.shape[0], build.ptr(rows),
+                     build.ptr(lf), build.ptr(feats), build.ptr(jac), Lw,
+                     Nn, build.stream_of(dev))
+    return feats, jac
+
+
+def _k2_mode(mode, with_jac):
+    if mode == "no-jac-stores" and not with_jac:
+        raise ValueError("no-jac-stores needs the jacobian")
+    return K2_MODES[mode]
+
+
+def split_k2_plain(mode: str, table, rows, lf, with_jac: bool = True):
+    """Plain PyTorch version of `split_k2` (same contract):
+    `brick_reduce_plain`, for no-corners with every row read as row 0
+    and every cell that reads a row at local cell (0, 0, 0)."""
+    _k2_mode(mode, with_jac)
+    if mode == "no-corners":
+        table = table[0].expand(table.shape[0], W)
+        keep = _local_ok(lf[0:3])
+        lf = torch.cat([torch.where(keep, 0.0, lf[0:3]), lf[3:]])
+    f, j = brickreduce.brick_reduce_plain(
+        table, rows, lf, F, with_jac and mode != "no-jac-stores")
+    if mode == "coalesced-feats":
+        f = f.reshape(-1, F).T.contiguous()
+    return f, j
+
+
+def make_k2_inputs(gen, device, Lw: int, n: int, n_rows: int):
+    """A K2 group's inputs from `gen`: rows uniform over the table; lf
+    with local cells over all 8 brick cells, uniform fractions and a
+    scale of 64."""
+    kw = dict(generator=gen, device=device)
+    rows = torch.randint(0, n_rows, (Lw, n), dtype=torch.int32, **kw)
+    loc = torch.randint(0, 2, (3, Lw, n), **kw).float()
+    lf = torch.cat([loc, torch.rand((3, Lw, n), **kw),
+                    torch.full((1, Lw, n), 64.0, device=device),
+                    torch.zeros((1, Lw, n), device=device)])
+    return dict(rows=rows, lf=lf)
+
+
+def k2_bytes(mode, inp, with_jac):
+    """(bytes, f32 operations) a K2 variant must move and do on these
+    inputs: the distinct corner points it reads (no-corners: one), the
+    row ids, the lf planes it reads (the scale only with a stored
+    jacobian) and the outputs it writes."""
+    rows, lf = inp["rows"], inp["lf"]
+    cells = rows.numel()
+    jac = with_jac and mode != "no-jac-stores"
+    pts = 1 if mode == "no-corners" else \
+        _point_keys(rows.reshape(-1).long(), lf, 8)
+    nbytes = (pts * F * 2 + cells * 4 * (1 + 6 + jac)
+              + cells * 4 * F * (1 + 3 * jac))
+    return nbytes, cells * 8 * F * (1 + 3 * jac) * 2
 
 
 def make_inputs(gen, device, rows: int, U: int, table, order: str):
@@ -390,9 +503,11 @@ def bwd_bytes(mode, inp):
 
 
 def cases(device, seed: int = 0, groups=GROUPS, n_rows: int = N_ROWS,
-          fwd_modes=None, bwd_modes=None, uids=UIDS) -> list:
+          fwd_modes=None, bwd_modes=None, uids=UIDS, k2_groups=K2_GROUPS,
+          k2_rows: int = K2_ROWS, k2_modes=None) -> list:
     """One `common.Case` per (direction, mode, uid input), each over all
-    groups (its time is the sum over the groups, as the TPU probe's)."""
+    groups (its time is the sum over the groups, as the TPU probe's),
+    then one per (K2 mode, K2 group)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     table = torch.randn((n_rows, W), generator=gen, device=device
                         ).to(torch.bfloat16)
@@ -407,7 +522,29 @@ def cases(device, seed: int = 0, groups=GROUPS, n_rows: int = N_ROWS,
                      for inp in ins]
         out += [_bwd_case(mode, o, grad, ins, slot_rows) for mode in
                 (list(BWD_MODES) if bwd_modes is None else bwd_modes)]
+    if k2_groups:
+        k2_table = torch.randn((k2_rows, W), generator=gen, device=device
+                               ).to(torch.bfloat16)
+        for name, Lw, n, with_jac in k2_groups:
+            inp = make_k2_inputs(gen, device, Lw, n, k2_rows)
+            out += [_k2_case(mode, name, with_jac, k2_table, inp)
+                    for mode in (list(K2_MODES) if k2_modes is None
+                                 else k2_modes)
+                    if with_jac or mode != "no-jac-stores"]
     return out
+
+
+def _k2_case(mode, group, with_jac, table, inp):
+    args = (table, inp["rows"], inp["lf"], with_jac)
+    nbytes, flops = k2_bytes(mode, inp, with_jac)
+    return common.Case(
+        "kernel_split", f"k2 {mode}, {group}",
+        lambda: split_k2(mode, *args), lambda: split_k2_plain(mode, *args),
+        lambda: table.index_select(0, inp["rows"].reshape(-1)),
+        "index_select of the cells' rows (the gather in front of the "
+        "TPU's K2)", nbytes, flops, "fwd",
+        "ingp_brick_reduce_fwd" if mode == "shipping"
+        else "ingp_probe_split_k2")
 
 
 def _fwd_case(mode, order, table, ins):
@@ -466,6 +603,9 @@ PIECES = (("fwd", "no-planes", "weight build"),
           ("bwd", "no-planes", "weight build"),
           ("bwd", "walk-1", "per-cell work of cells 2-256"),
           ("bwd", "staged", "global loads inside the walk"))
+K2_PIECES = (("no-corners", "corner gather"),
+             ("no-jac-stores", "jacobian arithmetic and stores"),
+             ("coalesced-feats", "feature stores' stride"))
 
 
 def piece_shares(ms: dict) -> list:
@@ -486,6 +626,18 @@ def piece_shares(ms: dict) -> list:
             if full and parts:
                 lines.append(f"K1 {d} ({order} uid, full {full:.4f} ms): "
                              + ", ".join(parts))
+    for group, *_ in K2_GROUPS:
+        full = ms.get(f"k2 full, {group}")
+        parts = [f"{piece} {1 - ms[v] / full:+.1%}"
+                 for stub, piece in K2_PIECES
+                 if (v := f"k2 {stub}, {group}") in ms]
+        ship = ms.get(f"k2 shipping, {group}")
+        if ship is not None:
+            parts.append(f"shipping kernel {ship:.4f} ms "
+                         f"({ship / full - 1:+.1%} of full)")
+        if full and parts:
+            lines.append(f"K2 fwd ({group}, full {full:.4f} ms): "
+                         + ", ".join(parts))
     return lines
 
 
@@ -494,8 +646,9 @@ def main(argv=None):
     rowpair = os.environ.get("PROBE_ROWPAIR", "0") == "1"
     fwd_modes = list(ROWPAIR_MODES if rowpair else FWD_MODES)
     res = common.run(cases(a.device, a.seed, fwd_modes=fwd_modes,
-                           bwd_modes=[] if rowpair else None), a.device,
-                     a.iters)
+                           bwd_modes=[] if rowpair else None,
+                           k2_groups=() if rowpair else K2_GROUPS),
+                     a.device, a.iters)
     for s in piece_shares({c.variant: r["ms"] for c, r in res}):
         print(s, flush=True)
 

@@ -171,6 +171,152 @@ def test_k2_bwd_matches_plain(cuda, bf16, with_dj):
     assert not bool(out.any())
 
 
+# The redesigned K1 backward (a warp per run and 32 lanes, each slot's
+# cells summed in k order) and K2 forward (tiles of S samples x Lw
+# levels, outputs staged and written as contiguous slabs): training's
+# shapes and the plans that stress the design. With each slot its own
+# table row the f32 atomics cannot reorder anything, so the K1 backward
+# must give the plain version's bits exactly.
+
+def _k1_plan(rng, kind, B, K, U):
+    """uid (B, K) and the overflow mask of a plan: "training" (runs of ~9
+    cells, the cap U clipping the tail to -9 as the stream does), "one
+    slot" (a slot spanning the row), "every cell" (each cell its own
+    slot), "long rows" (K > 256: runs across the kernel's 256-cell
+    chunks, one longer than a chunk), "outside" (uids outside [0, U)
+    inside runs and at the ends)."""
+    if kind == "one slot":
+        return np.zeros((B, K), np.int32), np.zeros((B, K), bool)
+    if kind == "every cell":
+        return np.tile(np.arange(K, dtype=np.int32), (B, 1)), \
+            np.zeros((B, K), bool)
+    new = rng.random((B, K)) < (0.02 if kind == "long rows" else 1 / 9)
+    new[:, 0] = True
+    run = np.cumsum(new, 1)
+    uid = np.minimum(run - 1, U - 1).astype(np.int32)
+    if kind == "outside":
+        uid[:, 7:11] = U + 5
+        uid[::2, :3] = -1
+        uid[1::3, -2:] = U
+    return uid, run > U
+
+
+def _k1_bwd_inputs(rng, kind, B, K, U, F=8):
+    uid, ovf = _k1_plan(rng, kind, B, K, U)
+    lf = _lf(rng, B, K)
+    lf[0:3][:, torch.from_numpy(ovf)] = -9.0
+    df = torch.from_numpy(rng.normal(size=(F, B, K)).astype(np.float32))
+    dj = torch.from_numpy(rng.normal(size=(3 * F, B, K)).astype(np.float32))
+    return torch.from_numpy(uid), lf, df, dj
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("kind,B,K,U", [("training", 768, 256, 192),
+                                        ("one slot", 32, 256, 192),
+                                        ("every cell", 32, 256, 256),
+                                        ("long rows", 16, 600, 192),
+                                        ("outside", 64, 256, 192)])
+def test_k1_bwd_plans_bitwise(cuda, bf16, kind, B, K, U):
+    rng = np.random.default_rng(7)
+    uid, lf, df, dj = _k1_bwd_inputs(rng, kind, B, K, U)
+    urows = torch.arange(B * U, dtype=torch.int32).reshape(B, U)
+    ref = k1.fused_ray_reduce_bwd_plain(torch.zeros(B * U, 256), urows, uid,
+                                        lf, df, dj, 8, bf16=bf16)
+    out = k1.fused_ray_reduce_bwd(
+        torch.zeros((B * U, 256), device=cuda), urows.to(cuda), uid.to(cuda),
+        lf.to(cuda), df.to(cuda), dj.to(cuda), 8, bf16=bf16)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_k1_bwd_training_shapes(cuda):
+    """Training's recorded launch: uid (768, 256), U 192, F = Fj = 8,
+    bf16, slots on rows of a density-sized table (rows shared between
+    slots: only the f32 atomic order differs from the plain version)."""
+    rng = np.random.default_rng(8)
+    B, K, U, R = 768, 256, 192, 207_295
+    uid, lf, df, dj = _k1_bwd_inputs(rng, "training", B, K, U)
+    urows = torch.from_numpy(rng.integers(0, R, (B, U)).astype(np.int32))
+    ref = k1.fused_ray_reduce_bwd_plain(torch.zeros(R, 256), urows, uid, lf,
+                                        df, dj, 8, bf16=True)
+    out = k1.fused_ray_reduce_bwd(
+        torch.zeros((R, 256), device=cuda), urows.to(cuda), uid.to(cuda),
+        lf.to(cuda), df.to(cuda), dj.to(cuda), 8, bf16=True)
+    torch.cuda.synchronize()
+    _close(out, ref)
+
+
+def test_k1_bwd_needs_16_byte_rows(cuda):
+    """The kernel adds each lattice point's lanes with 16-byte atomics:
+    the wrapper refuses a gradient whose rows are not 16-byte aligned
+    and launches nothing."""
+    rng = np.random.default_rng(11)
+    uid, lf, df, dj = _k1_bwd_inputs(rng, "training", 4, 256, 16)
+    urows = torch.zeros((4, 16), dtype=torch.int32, device=cuda)
+    args = (urows, uid.to(cuda), lf.to(cuda), df.to(cuda), dj.to(cuda), 8)
+    n0 = build.LAUNCHES["ingp_ray_reduce_bwd"]
+    shifted = torch.zeros(40 * 256 + 1, device=cuda)[1:].view(40, 256)
+    with pytest.raises(ValueError):
+        k1.fused_ray_reduce_bwd(shifted, *args)
+    with pytest.raises(ValueError):
+        k1.fused_ray_reduce_bwd(torch.zeros((40, 218), device=cuda), *args)
+    assert build.LAUNCHES["ingp_ray_reduce_bwd"] == n0
+
+
+@pytest.mark.parametrize("Lw,N,F,window,dtype", [
+    (4, 196_608, 8, (0, None), torch.bfloat16),    # training, density
+    (16, 65_536, 8, None, torch.bfloat16),         # the grid refresh
+    (4, 3_037, 8, (0, None), torch.float32),       # a ragged last tile
+    (16, 1_000, 8, (0, None), torch.bfloat16),     # Lw 16 with the jacobian
+    (3, 1_001, 4, (1, 3), torch.float32),          # S*Lw < 256, odd planes
+    (5, 77, 2, (1, 2), torch.bfloat16)])
+def test_k2_tiles_match_plain(cuda, Lw, N, F, window, dtype):
+    rng = np.random.default_rng(9)
+    W, R = 32 * F, 2_000
+    table = torch.from_numpy(rng.normal(size=(R, W)).astype(np.float32)
+                             ).to(dtype)
+    rows = torch.from_numpy(rng.integers(0, R, (Lw, N)).astype(np.int32))
+    rows[:, ::13] = R + 3                             # outside the table
+    lf = _lf(rng, Lw, N)
+    with_jac = window is not None
+    jac_lo, jac_hi = window if with_jac else (0, None)
+    ref = k2.brick_reduce_plain(table, rows, lf, F, with_jac, jac_lo, jac_hi)
+    n0 = build.LAUNCHES["ingp_brick_reduce_fwd"]
+    out = k2.brick_reduce(table.to(cuda), rows.to(cuda), lf.to(cuda), F,
+                          with_jac, jac_lo, jac_hi)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ingp_brick_reduce_fwd"] == n0 + 1
+    for a, b in zip(out, ref):
+        if b is None:
+            assert a is None
+            continue
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * scale + 1e-7
+    zero = ((lf[0] < 0) | (rows >= R)).T                 # (N, Lw)
+    assert not bool(out[0].cpu().reshape(N, Lw, F)[zero].any())
+
+
+@pytest.mark.parametrize("with_jac", [True, False])
+def test_k2_matches_old_body(cuda, with_jac):
+    """The redesigned K2 forward against the body it replaced (the K2
+    split's `full`) on the card: the same per-cell arithmetic."""
+    from ingp_tpu_torch.probes import kernel_split as ps
+    rng = np.random.default_rng(10)
+    Lw, N, R = 4, 20_000, 3_000
+    table = torch.from_numpy(rng.normal(size=(R, 256)).astype(np.float32)
+                             ).to(torch.bfloat16).to(cuda)
+    rows = torch.from_numpy(rng.integers(0, R, (Lw, N)).astype(np.int32)
+                            ).to(cuda)
+    lf = _lf(rng, Lw, N).to(cuda)
+    new = k2.brick_reduce(table, rows, lf, 8, with_jac)
+    old = ps.split_k2("full", table, rows, lf, with_jac)
+    for a, b in zip(new, old):
+        if b is not None:
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 1e-5 * scale + 1e-7
+
+
 def test_k3_bwd_matches_plain(cuda):
     rng = np.random.default_rng(5)
     R, S, C = 1000, 48, 13
@@ -205,7 +351,11 @@ def test_probe_kernels_match_plain(cuda, probe):
                                fwd_modes=["full", "shipping", "no-planes",
                                           "no-expand", "no-dot",
                                           "bf16-planes", "rowpair-2",
-                                          "rowpair-4"]),
+                                          "rowpair-4"],
+                               k2_groups=(("Lw 4, jac", 4, 3_000, True),
+                                          ("Lw 16, no jac", 16, 700,
+                                           False)),
+                               k2_rows=900),
           "row_layouts": dict(shapes=(((256,), torch.bfloat16, 5000, 3000),
                                       ((16, 128), torch.bfloat16, 700, 300),
                                       ((8, 128), torch.float32, 700, 300))),

@@ -21,6 +21,9 @@ same arrays, at small sizes.
   loop (runs, flushes, stores), in f32 and with the bf16 rounding the
   probe runs (each cell's lane cotangent and each run's sum), and the
   bf16 `full` against the custom_vjp on a bf16 block.
+- The K2 split's `full` against ingp_tpu.ops.pallas.brickreduce_pallas
+  `fused_brick_reduce` in interpret mode (integer local coordinates, as
+  above), its stubs against `full` and a numpy formula.
 
 The probes' Pallas kernels themselves are closures inside each probe's
 `main()` and cannot be imported without editing the probes, which stay
@@ -34,6 +37,7 @@ import pytest
 import torch
 
 from ingp_tpu.ops.pallas.brickreduce_pallas import _point_coords
+from ingp_tpu.ops.pallas.brickreduce_pallas import fused_brick_reduce as j_fbr
 from ingp_tpu.ops.pallas.rayreduce_pallas import _selT_blockdiag
 from ingp_tpu.ops.pallas.rayreduce_pallas import fused_ray_reduce as j_frr
 
@@ -478,12 +482,119 @@ def test_split_bwd_bf16_matches_kernel_walk(mode, order):
         out, _port_bwd(mode, table, urows, uid, lf, df, dj))
 
 
+# ----------------------------------------------------- K2 split, forward
+
+def _k2_case(seed, Lw=2, n=512, n_rows=300):
+    """K2 split inputs: a bf16-valued table, rows over it, lf with
+    integer local cells (the Pallas K2 matches lattice points by
+    equality), -9 on every 7th cell and a per-level scale."""
+    rng = np.random.default_rng(seed)
+    table = _bf16(rng.standard_normal((n_rows, W)))
+    rows = rng.integers(0, n_rows, (Lw, n)).astype(np.int32)
+    loc = rng.integers(0, 2, (3, Lw, n)).astype(np.float32)
+    loc[:, :, ::7] = -9.0
+    frac = rng.uniform(0, 1, (3, Lw, n)).astype(np.float32)
+    sc = np.broadcast_to(np.float32(16.0) * (1 + np.arange(Lw))[:, None],
+                         (1, Lw, n))
+    lf = np.concatenate([loc, frac, sc, np.zeros((1, Lw, n))]
+                        ).astype(np.float32)
+    return table, rows, lf
+
+
+def _port_k2(mode, table, rows, lf, with_jac=True):
+    f, j = ps.split_k2(mode, T(table).to(torch.bfloat16), T(rows), T(lf),
+                       with_jac)
+    return N(f), None if j is None else N(j)
+
+
+@pytest.mark.parametrize("mode", ["full", "shipping"])
+def test_split_k2_full_matches_pallas_interpret(mode):
+    """The replaced K2 body (and the shipping kernel's plain version) against
+    the TPU kernel on the same gathered rows, in the port's (N, Lw*F)
+    layout."""
+    Lw, n = 2, 512
+    table, rows, lf = _k2_case(11, Lw, n)
+    g = jnp.asarray(table, jnp.bfloat16)[rows.reshape(-1)]
+    fj, jj = j_fbr(g, jnp.asarray(lf.reshape(8, -1)), F, True)
+    fj = N(fj).reshape(F, Lw, n).transpose(2, 1, 0).reshape(n, Lw * F)
+    jj = N(jj).reshape(3, F, Lw, n).transpose(0, 3, 2, 1).reshape(3, n, -1)
+    f, j = _port_k2(mode, table, rows, lf)
+    _close(f, fj)
+    _close(j, jj)
+    assert (f[::7] == 0).all() and (np.abs(f).sum(1) > 0).sum() > n // 2
+
+
+@pytest.mark.parametrize("with_jac", [True, False])
+def test_split_k2_stubs(with_jac):
+    """no-jac-stores: full's features, no jacobian; coalesced-feats:
+    full's features feature-major (cell n*Lw + l); no-corners: every
+    valid cell reduces the corners of cell (0, 0, 0) of row 0."""
+    Lw, n = 3, 100
+    table, rows, lf = _k2_case(12, Lw, n)
+    full = _port_k2("full", table, rows, lf, with_jac)
+    assert (full[1] is None) == (not with_jac)
+    if with_jac:
+        f, j = _port_k2("no-jac-stores", table, rows, lf)
+        np.testing.assert_array_equal(f, full[0])
+        assert j is None
+    f, j = _port_k2("coalesced-feats", table, rows, lf, with_jac)
+    np.testing.assert_array_equal(
+        f, full[0].reshape(n * Lw, F).T)
+    if with_jac:
+        np.testing.assert_array_equal(j, full[1])
+    f, j = _port_k2("no-corners", table, rows, lf, with_jac)
+    ok = (lf[0:3] >= 0).all(0)                       # (Lw, n)
+    lf0 = lf.copy()
+    lf0[0:3] = np.where(ok, 0.0, lf[0:3])
+    ref = _port_k2("full", table, np.zeros_like(rows), lf0, with_jac)
+    np.testing.assert_array_equal(f, ref[0])
+    assert (f.reshape(n, Lw, F)[ok.T] != 0).any()
+    if with_jac:
+        np.testing.assert_array_equal(j, ref[1])
+        # the 8 corners of cell (0, 0, 0) of row 0, weighted (a numpy
+        # formula of the trilerp)
+        g = table[0, :27 * F].reshape(27, F)
+        fr = lf[3:6].transpose(2, 1, 0)              # (n, Lw, 3)
+        feats = np.zeros((n, Lw, F))
+        for a in (0, 1):
+            for b in (0, 1):
+                for c in (0, 1):
+                    w = np.prod([fr[..., i] if s_ else 1 - fr[..., i]
+                                 for i, s_ in enumerate((a, b, c))], 0)
+                    feats += w[..., None] * g[9 * a + 3 * b + c]
+        feats = np.where(ok.T[..., None], feats, 0.0).reshape(n, Lw * F)
+        np.testing.assert_allclose(f, feats, rtol=1e-5, atol=1e-5)
+
+
+def test_split_k2_rejects_no_jac_stores_without_jac():
+    table, rows, lf = _k2_case(13, 1, 16)
+    with pytest.raises(ValueError):
+        _port_k2("no-jac-stores", table, rows, lf, False)
+
+
+def test_split_bwd_full_without_jacobian_cotangent():
+    """The backward `full` with djac None (the rgb table's form) equals
+    its walk with a zero jacobian cotangent; the stubs refuse it."""
+    table, urows, uid, lf, df, dj = _walk_case("sorted")
+    out = ps.split_bwd("full", torch.zeros(table.shape[0], W), T(urows),
+                       T(uid), T(lf), T(df), None, bf16=True)
+    ref = _walk_kernel("full", table.shape[0], urows, uid, lf, df,
+                       np.zeros_like(dj), True)
+    np.testing.assert_array_equal(N(out), ref)
+    with pytest.raises(ValueError):
+        ps.split_bwd("no-planes", torch.zeros(table.shape[0], W), T(urows),
+                     T(uid), T(lf), T(df), None)
+
+
 def test_probe_cases_run_on_the_cpu(capsys):
     """The CPU route of the probes' entry points: plain versions only,
     one line per variant, no kernel launched."""
     n0 = sum(build.LAUNCHES.values())
     cpu = torch.device("cpu")
-    cases = (ps.cases(cpu, groups=((8, 12),), n_rows=64)
+    cases = (ps.cases(cpu, groups=((8, 12),), n_rows=64,
+                      k2_groups=(("Lw 4, jac", 4, 40, True),
+                                 ("Lw 16, no jac", 16, 9, False)),
+                      k2_rows=64)
              + pr.cases(cpu, shapes=(((256,), torch.bfloat16, 512, 100),))
              + pv.cases(cpu, rows=64, n=512) + pg.cases(cpu, big_rows=64))
     for c in cases:
@@ -492,6 +603,6 @@ def test_probe_cases_run_on_the_cpu(capsys):
             assert torch.equal(a, b)
     assert common.run(cases, cpu, 1) == []
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(cases) == 24 + 1 + 3 + 5
+    assert len(lines) == len(cases) == 24 + 9 + 1 + 3 + 5
     assert all("plain version on the CPU" in s for s in lines)
     assert sum(build.LAUNCHES.values()) == n0
