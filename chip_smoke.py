@@ -34,12 +34,17 @@ Phases, each line flushed and stamped with elapsed seconds:
    later untimed steps count every kernel's calls by variant and shape;
    after the untimed steps each variant is held against its plain
    version run on the CPU (-9 cells and non-included samples must give
-   exact zeros), with times (CUDA events; the backward kernels into a
-   reused gradient) and the bound; then "before/after": the K1 backward
-   and K2 forward bodies that the current kernels replaced (the K1/K2
-   split's `full` variants) are held to the same outputs and timed
-   beside them on the recorded inputs, from the host and from a CUDA
-   graph;
+   exact zeros), with times (CUDA events from the host, and from a CUDA
+   graph; the backward kernels into a reused gradient, K2's also with
+   the gradient cold in the L2) and the bound, and so are the last
+   untimed step's K2 backward launches (the first step's are mostly
+   zero padding; these stand in the kernels line); K1 forward is timed at
+   each level-group shape; then "before/after": the K1 backward, K2
+   forward, K2 backward and K3 backward bodies that the current kernels
+   replaced (the split's `full` variants) are held to the same outputs
+   and timed beside them on the recorded inputs, from the host and from
+   a CUDA graph, K2 backward also on the last untimed step's launches
+   with the K2 bwd split's stubs;
 7. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
 8. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
@@ -60,7 +65,9 @@ Phases, each line flushed and stamped with elapsed seconds:
    `launches_per_train_step` for all), then the result line.
 
 With --profile, a torch.profiler pass over one more render and one more
-training step prints the CUDA time per op (not part of the check).
+training step prints the CUDA time per op and of each launch of the
+port's kernels, and the step's backward nodes of K1/K2/K3 with the
+sinks' zero fills (not part of the check).
 
 Exits non-zero, printing no result line, when CUDA is unavailable or any
 check fails.
@@ -86,6 +93,10 @@ IMG_SIZE = 256        # bench.py's synthetic image size
 N_VIEWS = 16          # bench.py's training views
 BATCH = 8192          # bench.py's rays per training step
 STEPS_WARMUP, STEPS_SETTLE, STEPS_MEASURE = 3, 16, 30
+# the last untimed step, whose K2 bwd launches are checked, timed and
+# stand in the kernels line too: the first step's are ~80% the stream's
+# zero-padded tail, whose zero cotangents add nothing
+LATE_STEP = STEPS_WARMUP + STEPS_SETTLE - 1
 
 # kernels line name -> (launcher symbol, source, TPU kernel it replaces)
 KERNELS = {
@@ -135,14 +146,22 @@ PROBES = {
 }
 PROBE_ITERS = 10
 
-# the bodies that the current K1 backward and K2 forward replaced (the
-# K1/K2 split's `full` variants, ingp_tpu_torch/probes/kernel_split.py),
-# timed beside them on these recorded training variants
+# the bodies that the current K1 backward, K2 forward, K2 backward and K3
+# backward replaced (the split's `full` variants,
+# ingp_tpu_torch/probes/kernel_split.py), timed beside them on these
+# recorded training variants
 BEFORE_AFTER = (("fused_ray_reduce_bwd", "density table, jac"),
                 ("fused_ray_reduce_bwd", "rgb table, no jac"),
                 ("brick_reduce", "density table, jac"),
                 ("brick_reduce", "rgb table, no jac"),
-                ("brick_reduce", "density table, no jac"))
+                ("brick_reduce", "density table, no jac"),
+                ("brick_reduce_bwd", "density table, jac"),
+                ("brick_reduce_bwd", "rgb table, no jac"),
+                ("composite_bwd", "rgb and aux"))
+# the K2 bwd split's variants timed on training's recorded K2 bwd inputs
+# (not contiguous-reads: it hands cells other cells' cotangents, which on
+# these inputs puts nonzero cotangents on the padded tail's one row)
+K2B_SPLIT = ("full", "shipping", "no-atomics", "vector-atomics")
 
 # the training variant whose time and bound stand in the kernels line
 PRIMARY = {"fused_ray_reduce": "density table, jac",
@@ -249,17 +268,20 @@ def to_dev(x, dev):
 
 class Recorder:
     """Stands in for a function in the module that calls it, passes every
-    call through, counts the calls by (variant, shape(arguments)) where
-    shape is given and, with keep, keeps the arguments (by parameter
+    call through, counts the calls by (variant, shape(arguments)) (shape
+    None: by variant) and, with keep, keeps the arguments (by parameter
     name) and the result of the first call of each variant that
-    `variant(arguments)` names; None names no variant."""
+    `variant(arguments)` names, and the arguments of the first call of
+    each (variant, shape); None names no variant."""
 
     def __init__(self, module, name, variant, shape=None, keep=True):
         self.module, self.name, self.variant = module, name, variant
         self.shape, self.keep = shape, keep
         self.fn = getattr(module, name)
-        self.sig = inspect.signature(self.fn)
+        self.sig = inspect.signature(self.fn.fn if isinstance(
+            self.fn, Recorder) else self.fn)
         self.calls = {}
+        self.shapes = {}      # (variant, shape) -> arguments, with keep
         self.counts = collections.Counter()
         setattr(module, name, self)
 
@@ -270,10 +292,12 @@ class Recorder:
         a = dict(bound.arguments)
         v = self.variant(a)
         if v is not None:
-            if self.shape is not None:
-                self.counts[(v, self.shape(a))] += 1
+            key = (v, None if self.shape is None else self.shape(a))
+            self.counts[key] += 1
             if self.keep and v not in self.calls:
                 self.calls[v] = (a, out)
+            if self.keep and key not in self.shapes:
+                self.shapes[key] = a
         return out
 
     def restore(self):
@@ -516,18 +540,21 @@ def compare(name, tag, fn, plain, views, nbytes, flops, ref_dev, atol,
         if bool(a.any()) or bool(b.any()):
             raise AssertionError(f"{name} [{tag}]: -9 cells are not exact "
                                  f"zeros")
+    from ingp_tpu_torch.probes.common import graph_ms
     ms = cuda_ms(timed or fn, 20)
+    g_ms = graph_ms(timed or fn)
     plain_ms = cuda_ms(lambda: plain(DEVICE), 3)
     bound_ms, by = bound_of(nbytes, flops)
     log(f"kernel {name} [{tag}]: max_abs_err {err:.3e} (tol {tol:.3e}, max "
-        f"|plain| {scale:.3e}, plain on the {ref_dev}); {ms:.4f} ms vs "
-        f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"|plain| {scale:.3e}, plain on the {ref_dev}); {ms:.4f} ms "
+        f"(from a CUDA graph {g_ms:.4f} ms) vs plain {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
     if not err <= tol:
         raise AssertionError(f"{name} [{tag}] disagrees with its plain "
                              f"version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+    return {"max_abs_err": err, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
 def check_marked(name, tag, fn, lf, cells_of):
@@ -542,34 +569,66 @@ def check_marked(name, tag, fn, lf, cells_of):
         f"{(lf[0].numel() + 6) // 7} cells reads as exact zeros")
 
 
+def _k1_size(a):
+    """(bytes, f32 operations, slots read, (row, point) pairs read) of K1
+    forward on arguments a: the distinct (row, point) pairs, slot ids,
+    uid and lf it reads, the outputs it writes."""
+    import torch
+    urows, uid, lf, F = a["urows"], a["uid"], a["lf"], a["F"]
+    with_jac = a["with_jac"]
+    Fj = (F if a["jac_hi"] is None else a["jac_hi"]) - a["jac_lo"]
+    B, U = urows.shape
+    K = uid.shape[1]
+    cells = B * K
+    u = uid.reshape(-1).long()
+    ok = _local_ok(lf) & (u >= 0) & (u < U)
+    slot = (torch.arange(cells, device=uid.device) // K) * U \
+        + u.clamp(0, U - 1)
+    n_pts = _corner_points(urows.reshape(-1)[slot], lf, ok)
+    n_slots_read = int(torch.unique(slot[ok]).numel())
+    nbytes = (n_pts * F * a["table"].element_size() + n_slots_read * 4
+              + cells * 4 + cells * 4 * (6 + with_jac)
+              + cells * 4 * (F + 3 * Fj * with_jac))
+    return (nbytes, int(ok.sum()) * 8 * (F + 3 * Fj * with_jac) * 2,
+            n_slots_read, n_pts)
+
+
+def k1_group_times(rec):
+    """K1 forward at every level-group shape the first training step
+    launched (the check above takes the first one of each variant): host
+    and CUDA-graph ms beside the bound, on that shape's recorded
+    arguments."""
+    from ingp_tpu_torch.kernels import rayreduce as k1
+    from ingp_tpu_torch.probes.common import graph_ms
+    out = {}
+    for (v, shape), a in sorted(rec.shapes.items()):
+        fn = lambda a=a: k1.fused_ray_reduce(**a)   # noqa: E731
+        ms, g = cuda_ms(fn, 20), graph_ms(fn)
+        bound, _ = bound_of(*_k1_size(a)[:2])
+        out[(v, shape)] = {"ms": ms, "graph_ms": g, "bound_ms": bound}
+        log(f"kernel fused_ray_reduce [train, {v}] group {shape}: {ms:.4f} "
+            f"ms, from a CUDA graph {g:.4f} ms, bound {bound:.4f} ms (graph "
+            f"at {bound / g:.1%} of the bound)")
+    return out
+
+
 def check_k1(a, tag, ref_dev, real=None):
     """K1 forward on captured arguments a; real: (cells,) bool, the cells
     of real samples (default all)."""
     import torch
     from ingp_tpu_torch.kernels import rayreduce as k1
-    table, urows, uid, lf, F = (a[k] for k in ("table", "urows", "uid",
-                                                "lf", "F"))
-    with_jac, jac_lo, jac_hi = a["with_jac"], a["jac_lo"], a["jac_hi"]
-    B, U = urows.shape
-    K = uid.shape[1]
-    Fj = (F if jac_hi is None else jac_hi) - jac_lo
-    cells = B * K
-    cell = torch.arange(cells, device=uid.device)
-    real = torch.ones_like(cell, dtype=torch.bool) if real is None else real
+    table, urows, uid, lf = (a[k] for k in ("table", "urows", "uid", "lf"))
+    U = urows.shape[1]
+    real = torch.ones(uid.numel(), dtype=torch.bool, device=uid.device) \
+        if real is None else real
     u = uid.reshape(-1).long()
     ok = _local_ok(lf) & (u >= 0) & (u < U)
-    slot = (cell // K) * U + u.clamp(0, U - 1)
-    n_pts = _corner_points(urows.reshape(-1)[slot], lf, ok)
-    n_slots_read = int(torch.unique(slot[ok]).numel())
+    nbytes, flops, n_slots_read, n_pts = _k1_size(a)
     log(f"kernel fused_ray_reduce [{tag}]: table {tuple(table.shape)} "
         f"{table.dtype}, urows {tuple(urows.shape)}, uid "
         f"{tuple(uid.shape)}; {int(real.sum())} real cells, "
         f"{int((real & ~ok).sum())} of them -9; {n_slots_read} slots and "
         f"{n_pts} (row, point) pairs read")
-    nbytes = (n_pts * F * table.element_size() + n_slots_read * 4
-              + cells * 4 + cells * 4 * (6 + with_jac)
-              + cells * 4 * (F + 3 * Fj * with_jac))
-    flops = int(ok.sum()) * 8 * (F + 3 * Fj * with_jac) * 2
     cmp_m, zero_m = (real & ok).cpu(), (real & ~ok).cpu()
 
     def cells_of(t):
@@ -681,6 +740,83 @@ def _bwd_timed(name, tag, fn, a):
     return lambda: fn(**grad)
 
 
+def cold_ms(fn, grad, reps: int = 10) -> float:
+    """Median milliseconds of fn() adding into grad, with grad zeroed and
+    then a 256 MB scratch written before each run, outside the timed
+    window: the gradient's rows are cold in the 50 MB L2, as the step
+    finds them right after its sink's zero fill."""
+    import torch
+    flush = torch.empty(2 ** 26, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        grad.zero_()
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def k2_sharing(rws, ok):
+    """How K2's cells share rows on recorded inputs: runs (consecutive
+    valid samples at one level that read one row), distinct rows and the
+    most cells on one row."""
+    import torch
+    Lw, Nn = rws.shape
+    level = torch.arange(Lw, device=rws.device).repeat_interleave(Nn)[ok]
+    r = rws.reshape(-1)[ok].long()
+    start = torch.ones_like(r, dtype=torch.bool)
+    start[1:] = (r[1:] != r[:-1]) | (level[1:] != level[:-1])
+    lens = torch.bincount(torch.cumsum(start, 0) - 1)
+    _, per_row = torch.unique(r, return_counts=True)
+    n = max(int(ok.sum()), 1)
+    return {"cells": int(ok.sum()), "runs": int(start.sum()),
+            "cells_per_run": n / max(int(start.sum()), 1),
+            "runs_of_1": float((lens == 1).float().mean()),
+            "longest_run": int(lens.max()) if lens.numel() else 0,
+            "rows": int(per_row.numel()),
+            "most_cells_on_a_row": int(per_row.max()) if per_row.numel()
+            else 0}
+
+
+def k2b_size(a, tag):
+    """(bytes, f32 operations) of K2 backward on arguments a, logged with
+    how its cells share rows: the cells that read a row, those of them
+    with a nonzero cotangent (live), and the runs, distinct (row, point)
+    pairs and rows of the live cells."""
+    rws, lf, F, dj = a["rows"], a["lf"], a["F"], a["djac"]
+    Lw, Nn = rws.shape
+    Fj = 0 if dj is None else dj.shape[2] // Lw
+    r = rws.reshape(-1)
+    ok = _local_ok(lf) & (r >= 0) & (r < a["grad"].shape[0])
+    ct = a["dfeats"].reshape(Nn, Lw, F).abs().sum(-1)
+    if dj is not None:
+        ct = ct + dj.reshape(3, Nn, Lw, Fj).abs().sum((0, 3))
+    live = ok & (ct.T.reshape(-1) != 0)
+    n_pts = _corner_points(rws, lf, ok)
+    n_live = _corner_points(rws, lf, live)
+    sh = k2_sharing(rws, live)
+    log(f"kernel brick_reduce_bwd [{tag}]: grad {tuple(a['grad'].shape)}, "
+        f"rows {tuple(rws.shape)}, bf16 {a['bf16']}; {int(ok.sum())} cells "
+        f"read a row, {sh['cells']} of them live (a nonzero cotangent); "
+        f"the live cells add {8 * sh['cells']} corners into {n_live} "
+        f"(row, point) pairs, in {sh['runs']} runs of consecutive samples "
+        f"at one level on one row ({sh['cells_per_run']:.3f} cells per "
+        f"run, {sh['runs_of_1']:.1%} of runs 1 cell, the longest "
+        f"{sh['longest_run']}), on {sh['rows']} distinct rows, at most "
+        f"{sh['most_cells_on_a_row']} on one row")
+    # rows, the 6 lf planes (7 with a jacobian: the scale), cotangents
+    return (Lw * Nn * 4 * (1 + 6 + (dj is not None) + F + 3 * Fj)
+            + n_pts * F * 8, int(ok.sum()) * 8 * (12 + 2 * F + 7 * Fj))
+
+
 def check_k1_bwd(a, tag):
     """K1 backward on captured arguments a, against the plain version on
     the CPU."""
@@ -703,7 +839,8 @@ def check_k1_bwd(a, tag):
         f"{tuple(uid.shape)}, bf16 {a['bf16']}; {int(ok.sum())} cells read "
         f"a row ({cells - int(ok.sum())} -9 or out of [0, U)), {n_slots} "
         f"slots, {n_pts} (row, point) pairs")
-    nbytes = cells * 4 * (1 + 7 + F + 3 * Fj) + n_slots * 4 + n_pts * F * 8
+    nbytes = cells * 4 * (1 + 6 + (dj is not None) + F + 3 * Fj) \
+        + n_slots * 4 + n_pts * F * 8
     flops = int(ok.sum()) * 8 * (12 + 2 * F + 7 * Fj)
     res = compare(
         "fused_ray_reduce_bwd", tag,
@@ -740,21 +877,21 @@ def check_k2_bwd(a, tag):
     rws, lf, F, dj = a["rows"], a["lf"], a["F"], a["djac"]
     Lw, Nn = rws.shape
     Fj = 0 if dj is None else dj.shape[2] // Lw
-    r = rws.reshape(-1)
-    ok = _local_ok(lf) & (r >= 0) & (r < a["grad"].shape[0])
     cells = Lw * Nn
-    n_pts = _corner_points(rws, lf, ok)
-    log(f"kernel brick_reduce_bwd [{tag}]: grad {tuple(a['grad'].shape)}, "
-        f"rows {tuple(rws.shape)}, bf16 {a['bf16']}; {int(ok.sum())} cells "
-        f"read a row, {n_pts} (row, point) pairs")
-    nbytes = cells * 4 * (1 + 7 + F + 3 * Fj) + n_pts * F * 8
-    flops = int(ok.sum()) * 8 * (12 + 2 * F + 7 * Fj)
+    nbytes, flops = k2b_size(a, tag)
+    timed = _bwd_timed("brick_reduce_bwd", tag, k2.brick_reduce_bwd, a)
     res = compare(
         "brick_reduce_bwd", tag,
         lambda: k2.brick_reduce_bwd(**_zero_grad(a, DEVICE)),
         lambda dev: k2.brick_reduce_bwd_plain(**_zero_grad(a, dev)),
-        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12,
-        _bwd_timed("brick_reduce_bwd", tag, k2.brick_reduce_bwd, a))
+        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12, timed)
+    grad = _zero_grad(a, DEVICE)
+    res["cold_ms"] = cold_ms(lambda: k2.brick_reduce_bwd(**grad),
+                             grad["grad"])
+    log(f"kernel brick_reduce_bwd [{tag}]: {res['cold_ms']:.4f} ms with the "
+        f"gradient zeroed and the L2 flushed before each run (outside the "
+        f"timed window); {res['ms']:.4f} ms into one reused gradient, "
+        f"{res['graph_ms']:.4f} ms from a CUDA graph")
     mark = torch.zeros(cells, dtype=torch.bool, device=lf.device)
     mark[::7] = True
     mark = mark.reshape(Lw, Nn).T.repeat_interleave(F, 1)   # (N, Lw*F)
@@ -790,8 +927,9 @@ def check_k3_bwd(a, tag):
         lambda dev: k3.composite_bwd_plain(**to_dev(a, dev)),
         lambda o: (list(o), []), nbytes, flops, "cpu", 1e-12)
     dsig = k3.composite_bwd(**a)[0]
-    sd = torch.where(valid, sig * a["deltas"], 0.0)
-    Ts = torch.exp(-(torch.cumsum(sd, -1) - sd))
+    # the include rule as K3 forward applies it, from its own Ts
+    Ts = k3.composite_fwd(sig, a["deltas"], a["ts"], valid,
+                          a["T_threshold"], with_Ts=True)["Ts"]
     excluded = ~(valid & (Ts > a["T_threshold"]))
     if bool(dsig[excluded].any()):
         raise AssertionError("composite_bwd: gradient on a sample that is "
@@ -913,7 +1051,11 @@ def phase_train(h):
     t = time.time()
     n_untimed = STEPS_WARMUP + STEPS_SETTLE
     for i in range(n_untimed):
+        late = record_kernels(system.model_cfg, ["brick_reduce_bwd"]) \
+            if i == LATE_STEP else {}
         aux = system.training_step(tr.sample_batch(rng, BATCH))
+        for r in late.values():
+            r.restore()
         losses.append(aux["loss"])
         if i == 0:
             torch.cuda.synchronize()
@@ -940,9 +1082,12 @@ def phase_train(h):
             f"{ {f'{v} {sh}': n for (v, sh), n in sorted(r.counts.items())} }")
     del census
     with torch.no_grad():
+        late = late["brick_reduce_bwd"].calls
         checks = check_train_kernels(recs)
-        before_after(recs, checks)
-    del recs
+        checks["brick_reduce_bwd"].update(check_late_k2_bwd(late))
+        k1_group_times(recs["fused_ray_reduce"])
+        before_after(before_after_rows(recs, checks, late))
+    del recs, late
     batches = [stage(tr.sample_batch(rng, BATCH), system.device)
                for _ in range(STEPS_MEASURE)]
     torch.cuda.synchronize()
@@ -999,68 +1144,146 @@ def check_train_kernels(recs):
     return out
 
 
-def before_after(recs, checks):
-    """The K1 backward and K2 forward bodies that the current kernels
-    replaced (the K1/K2 split's `full` variants) beside them, on
-    the first training step's recorded inputs (BEFORE_AFTER): the two
-    outputs held to each other at the check's tolerance, then each timed
-    in turns old, new, new, old (CUDA-event medians of 20 runs). One line
-    each: old ms, new ms, the bound, old / new, and both replayed from a
-    CUDA graph (the device's time without the host's dispatch of the
-    wrapper)."""
+def check_late_k2_bwd(late):
+    """K2 backward on the launches of step LATE_STEP (late, {variant:
+    (arguments, output)}) against the plain version on the CPU, keyed
+    "step LATE_STEP, <variant>"."""
+    if PRIMARY["brick_reduce_bwd"] not in late:
+        raise AssertionError(f"brick_reduce_bwd "
+                             f"[{PRIMARY['brick_reduce_bwd']}] was not "
+                             f"called in step {LATE_STEP}")
+    return {f"step {LATE_STEP}, {tag}":
+            check_k2_bwd(a, f"train step {LATE_STEP}, {tag}")
+            for tag, (a, _) in late.items()}
+
+
+def _old_new(name, a):
+    """The replaced body (the K1/K2/K3 split's `full` variant) and the
+    current kernel on recorded arguments a: (old, new, gradient or None,
+    atol, what). A backward pair adds into one gradient, zeroed before
+    each output is compared."""
     import torch
     from ingp_tpu_torch.kernels import brickreduce as k2
+    from ingp_tpu_torch.kernels import composite as k3
     from ingp_tpu_torch.kernels import rayreduce as k1
     from ingp_tpu_torch.probes import kernel_split as ps
+    if name == "composite_bwd":
+        return (lambda: ps.split_k3b("full", **a),
+                lambda: k3.composite_bwd(**a), None, 1e-12,
+                "the replaced K3 bwd body")
+    window = a["jac_lo"] == 0 and a["jac_hi"] in (None, a["F"])
+    if a["F"] != ps.F or not window:
+        raise AssertionError(f"{name}: the split's full body takes F = 8 "
+                             f"and the full window")
+    if name == "brick_reduce":
+        args = (a["table"], a["rows"], a["lf"])
+        return (lambda: ps.split_k2("full", *args, a["with_jac"]),
+                lambda: k2.brick_reduce(*args, a["F"], a["with_jac"],
+                                        a["jac_lo"], a["jac_hi"]),
+                None, 1e-7, "the replaced K2 fwd body")
+    grad = torch.zeros_like(a["grad"])
+    if name == "brick_reduce_bwd":
+        # the split's old body takes contiguous cotangents; the kernel
+        # gets them as the step hands them over
+        dj = None if a["djac"] is None else a["djac"].contiguous()
+        old_args = (grad, a["rows"], a["lf"], a["dfeats"].contiguous(), dj)
+        args = (grad, a["rows"], a["lf"], a["dfeats"], a["djac"])
+        return (lambda: ps.split_k2b("full", *old_args, bf16=a["bf16"]),
+                lambda: k2.brick_reduce_bwd(*args, a["F"], a["jac_lo"],
+                                            a["jac_hi"], a["bf16"]),
+                grad, 1e-12, "the replaced K2 bwd body")
+    args = (grad, a["urows"], a["uid"], a["lf"], a["dfeats"], a["djac"])
+    return (lambda: ps.split_bwd("full", *args, bf16=a["bf16"]),
+            lambda: k1.fused_ray_reduce_bwd(*args, a["F"], a["jac_lo"],
+                                            a["jac_hi"], a["bf16"]),
+            grad, 1e-12, "the replaced K1 bwd body")
+
+
+def _flat_outs(out):
+    return [t.clone() for t in (out if isinstance(out, (tuple, list))
+                                else (out,)) if t is not None]
+
+
+def before_after_rows(recs, checks, late):
+    """The rows of `before_after`: the first step's BEFORE_AFTER
+    variants (recs) and the K2 bwd launches of step LATE_STEP (late,
+    {variant: (arguments, output)}), each with the bound of its check."""
+    rows = [(name, f"train, {tag}", recs[name].calls[tag][0],
+             checks[name][tag]["bound_ms"]) for name, tag in BEFORE_AFTER]
+    for tag, (a, _) in late.items():
+        rows.append(("brick_reduce_bwd", f"train step {LATE_STEP}, {tag}", a,
+                     checks["brick_reduce_bwd"][f"step {LATE_STEP}, {tag}"]
+                     ["bound_ms"]))
+    return rows
+
+
+def before_after(rows):
+    """The bodies that the current K1 backward, K2 forward, K2 backward
+    and K3 backward replaced (the split's `full` variants) beside them,
+    on recorded inputs, rows (kernel, tag, arguments, bound ms): the
+    first training step's BEFORE_AFTER variants and the last untimed
+    step's K2 bwd launches. The two outputs are held to each other at the
+    check's tolerance, then each timed
+    in turns old, new, new, old (CUDA-event medians of 20 runs). One line
+    each: old ms, new ms, the bound, old / new, both replayed from a CUDA
+    graph (the device's time without the host's dispatch of the
+    wrapper) and, for K2 bwd, both with the gradient's rows cold in the
+    L2 (`cold_ms`). For K2 bwd also the K2 bwd split's stubs on the same
+    inputs (K2B_SPLIT), from a CUDA graph and cold."""
     from ingp_tpu_torch.probes.common import graph_ms
-    for name, tag in BEFORE_AFTER:
-        a, _ = recs[name].calls[tag]
-        window = a["jac_lo"] == 0 and a["jac_hi"] in (None, a["F"])
-        if a["F"] != ps.F or not window:
-            raise AssertionError(f"{name} [{tag}]: the split's full body "
-                                 f"takes F = 8 and the full window")
-        if name == "fused_ray_reduce_bwd":
-            grad = torch.zeros_like(a["grad"])
-            args = (grad, a["urows"], a["uid"], a["lf"], a["dfeats"],
-                    a["djac"])
-
-            def old():
-                return ps.split_bwd("full", *args, bf16=a["bf16"])
-
-            def new():
-                return k1.fused_ray_reduce_bwd(*args, a["F"], a["jac_lo"],
-                                               a["jac_hi"], a["bf16"])
-            outs = []
-            for fn in (old, new):
+    for name, tag, a, bound in rows:
+        old, new, grad, atol, what = _old_new(name, a)
+        outs = []
+        for fn in (old, new):
+            if grad is not None:
                 grad.zero_()
-                outs.append([fn().clone()])
-            atol, what = 1e-12, "the replaced K1 bwd body"
-        else:
-            args = (a["table"], a["rows"], a["lf"])
-
-            def old():
-                return ps.split_k2("full", *args, a["with_jac"])
-
-            def new():
-                return k2.brick_reduce(*args, a["F"], a["with_jac"],
-                                       a["jac_lo"], a["jac_hi"])
-            outs = [[t for t in fn() if t is not None] for fn in (old, new)]
-            atol, what = 1e-7, "the replaced K2 fwd body"
+            outs.append(_flat_outs(fn()))
         err, scale = max_err(outs[1], outs[0])
         if not err <= 1e-5 * scale + atol:
             raise AssertionError(f"before/after {name} [{tag}]: the new "
                                  f"kernel and {what} differ by {err:.3e}")
+        del outs
         t = [cuda_ms(fn, 20) for fn in (old, new, new, old)]
         g = [graph_ms(fn) for fn in (old, new)]
         was, now = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-        bound = checks[name][tag]["bound_ms"]
-        log(f"before/after {name} [train, {tag}]: old ({what}) "
+        cold = ""
+        if name == "brick_reduce_bwd":
+            c = [cold_ms(fn, grad) for fn in (old, new, new, old)]
+            cold = (f"; L2-cold old {(c[0] + c[3]) / 2:.4f} ms, new "
+                    f"{(c[1] + c[2]) / 2:.4f} ms")
+        log(f"before/after {name} [{tag}]: old ({what}) "
             f"{was:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), new {now:.4f} ms "
             f"({t[1]:.4f}, {t[2]:.4f}), bound {bound:.4f} ms; old/new "
             f"{was / now:.2f}x, new at {bound / now:.1%} of the bound; "
             f"replayed from a CUDA graph (no host dispatch) old "
-            f"{g[0]:.4f} ms, new {g[1]:.4f} ms; outputs agree to "
-            f"{err:.3e} (max {scale:.3e})")
+            f"{g[0]:.4f} ms, new {g[1]:.4f} ms ({g[0] / g[1]:.2f}x){cold}; "
+            f"outputs agree to {err:.3e} (max {scale:.3e})")
+        if name == "brick_reduce_bwd":
+            k2b_split(a, tag, grad)
+
+
+def k2b_split(a, tag, grad):
+    """The K2 bwd split's variants (K2B_SPLIT) on one recorded launch,
+    from a CUDA graph and with the gradient cold, and the share of
+    `full`'s time each stub takes away (1 - stub / full)."""
+    import torch
+    from ingp_tpu_torch.probes import kernel_split as ps
+    from ingp_tpu_torch.probes.common import graph_ms
+    scratch = torch.zeros(ps.k2b_blocks(a["rows"].numel()),
+                          device=DEVICE)
+    args = (grad, a["rows"], a["lf"], a["dfeats"].contiguous(),
+            None if a["djac"] is None else a["djac"].contiguous(), scratch)
+    g, c = {}, {}
+    for mode in K2B_SPLIT:
+        fn = lambda m=mode: ps.split_k2b(m, *args,  # noqa: E731
+                                         bf16=a["bf16"])
+        g[mode], c[mode] = graph_ms(fn), cold_ms(fn, grad)
+    shares = ", ".join(
+        f"{m} {g[m]:.4f} / {c[m]:.4f} ms ({1 - g[m] / g['full']:+.1%} / "
+        f"{1 - c[m] / c['full']:+.1%})" for m in K2B_SPLIT if m != "full")
+    log(f"k2 bwd split [{tag}] (graph / L2-cold; share of full "
+        f"taken away): full {g['full']:.4f} / {c['full']:.4f} ms; "
+        f"{shares}")
 
 
 def cpu_params(system):
@@ -1164,26 +1387,103 @@ def phase_probes():
     return out, launches
 
 
+def kernel_device_ms(prof) -> dict:
+    """Device milliseconds of each launch of the port's kernels (and of
+    the fills) in a profile, in launch order, by kernel name."""
+    from torch.autograd import DeviceType
+    names = ("ray_reduce_fwd_kernel", "ray_reduce_bwd_kernel",
+             "brick_reduce_fwd_kernel", "brick_reduce_bwd_kernel",
+             "composite_fwd_kernel", "composite_bwd_kernel", "FillFunctor")
+    out = collections.defaultdict(list)
+    for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in ev.name:
+                out[n].append(ev.time_range.elapsed_us() / 1e3)
+    return dict(out)
+
+
+class SinkFills:
+    """While active, a `torch.profiler.record_function` range "K2 bwd
+    <table>: sink zero fill" around `GradSink.buffer` (the fill of the
+    f32 master gradient, inside the profile's `BrickReduceFnBackward`
+    node): a profile's `key_averages` give its device time,
+    `kernel_device_ms` the kernels'."""
+
+    def __init__(self, tables):
+        self.tables = tables
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from ingp_tpu_torch.ops import gather
+        self.buffer = buffer = gather.GradSink.buffer
+        tables = self.tables
+
+        def sink_buffer(sink):
+            name = tables.get(sink.shape[0], sink.shape[0])
+            with record_function(f"K2 bwd {name}: sink zero fill"):
+                return buffer(sink)
+
+        gather.GradSink.buffer = sink_buffer
+        return self
+
+    def __exit__(self, *exc):
+        from ingp_tpu_torch.ops import gather
+        gather.GradSink.buffer = self.buffer
+
+
+def profile_summary(prof) -> dict:
+    """Of one profiled step: the device time of all ops (self), of the
+    backward nodes of K1/K2/K3, of each SinkFills range and of the
+    backward kernels, in ms."""
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    # the device's own rows, as the table's "Self CUDA time total"
+    self_total = sum(a.self_device_time_total for a in avgs
+                     if a.device_type == DeviceType.CUDA
+                     and not getattr(a, "is_user_annotation", False)) / 1e3
+    rows = {a.key: a.device_time_total / 1e3 for a in avgs
+            if a.key.startswith("K2 bwd ") or a.key in (
+                "BrickReduceFnBackward", "CompositeFnBackward",
+                "RayReduceFnBackward")}
+    rows.update({k: sum(ms) for k, ms in kernel_device_ms(prof).items()
+                 if "bwd" in k})
+    return {"cuda_total": self_total, **dict(sorted(rows.items()))}
+
+
 def phase_profile(system, ds, train_system):
     """CUDA time by op of one render and of one training step (a step
-    off the grid-refresh cadence), each with its wall time."""
+    off the grid-refresh cadence), each with its wall time and the
+    device time of each launch of the port's kernels; the step's also
+    summed by backward node, sink fill and backward kernel."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     batch = stage(train_system.train_dataset.sample_batch(
         np.random.default_rng(1), BATCH), train_system.device)
-    while train_system.global_step % train_system.UPDATE_INTERVAL == 0:
+    cfg = train_system.model_cfg
+    tables = {cfg.density_brick_cfg.total_bricks: "density",
+              cfg.rgb_brick_cfg.total_bricks: "rgb"}
+
+    def step():
+        while train_system.global_step % train_system.UPDATE_INTERVAL == 0:
+            train_system.training_step(batch)
         train_system.training_step(batch)
-    for what, fn in (("render", lambda: system.render_image(ds.poses[0])),
-                     ("train step", lambda: train_system.training_step(
-                         batch))):
+
+    def profiled(fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                SinkFills(tables):
             t = time.time()
             fn()
             torch.cuda.synchronize()
-            wall = time.time() - t
+            return prof, time.time() - t
+
+    for what, fn in (("render", lambda: system.render_image(ds.poses[0])),
+                     ("train step", step)):
+        prof, wall = profiled(fn)
         log(f"  prof {what}: {wall * 1e3:.1f} ms wall (the table's last "
             f"line gives the CUDA self time)")
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
@@ -1191,13 +1491,21 @@ def phase_profile(system, ds, train_system):
                                           max_name_column_width=60)
         for line in table.splitlines():
             log(f"  prof {what}: {line}")
+        for name, ms in kernel_device_ms(prof).items():
+            each = sorted(ms, reverse=True)[:12]
+            log(f"  prof {what}: {name}: {len(ms)} launches, device "
+                f"{sum(ms):.4f} ms (largest: "
+                f"{', '.join(f'{t:.4f}' for t in each)})")
+    summary = {k: round(v, 4) for k, v in profile_summary(prof).items()}
+    log(f"  prof train step: device ms by part {summary}")
 
 
 def kernel_rows(render_errs, train_checks, launches, probes,
                 probe_launches):
     """The kernels line: each kernel's launches in the timed training
     steps, its largest error over every variant checked (render and
-    training), and the time and bound of its PRIMARY training variant;
+    training), and the time and bound of its PRIMARY training variant
+    (K2 bwd's on step LATE_STEP's launch);
     then each probe kernel, its launches in the probes phase (per
     training step: 0), its largest error over its variants and the
     numbers of its PROBES variant."""
@@ -1206,12 +1514,14 @@ def kernel_rows(render_errs, train_checks, launches, probes,
         checks = train_checks[name]
         err = max([c["max_abs_err"] for c in checks.values()]
                   + [render_errs.get(name, 0.0)])
-        p = checks[PRIMARY[name]]
+        p = checks.get(f"step {LATE_STEP}, {PRIMARY[name]}",
+                       checks[PRIMARY[name]])
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "launches_per_train_step":
                          launches[name] / STEPS_MEASURE,
                      "max_abs_err": err, "ms": p["ms"],
+                     "graph_ms": p["graph_ms"],
                      "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
                      "bound_by": p["bound_by"], "library_ms": None})
     for name, (_, _, source, replaces, primary) in PROBES.items():

@@ -14,8 +14,10 @@ The backward (`brick_reduce_bwd`, `csrc/brickreduce.cu`) replaces
 `_fbr_bwd` of brickreduce_pallas.py: it computes each cell's per-lane
 cotangent of its row and scatter-adds it straight into the f32 master
 gradient of the table (the forward fused the gather, so there is no
-gathered block to hand a cotangent to). `BrickReduceFn` binds forward
-and backward into a `torch.autograd.Function`.
+gathered block to hand a cotangent to). It takes the feature and
+jacobian cotangents at any row stride, so the column slices that
+`torch.cat`'s backward hands over need no copy. `BrickReduceFn` binds
+forward and backward into a `torch.autograd.Function`.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from . import build
 
 SUPPORTED_F = (2, 4, 8)
 PLAIN_CHUNK = 1 << 16     # cells per step of the plain versions
+BWD_MAX_LEVELS = 256      # brickreduce.cu: a tile's cells fill one block
 
 _CORNERS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
 
@@ -235,10 +238,13 @@ def brick_reduce_bwd(grad, rows, lf, dfeats, djac, F: int, jac_lo: int = 0,
     the f32 master gradient `grad` (n_rows, W), in place.
 
     Args:
-      grad: (n_rows, W) f32, accumulated into.
-      rows, lf, F, jac_lo, jac_hi: as given to `brick_reduce`.
+      grad: (n_rows, W) f32, accumulated into (16-byte aligned, W a
+        multiple of 4 on the card).
+      rows, lf, F, jac_lo, jac_hi: as given to `brick_reduce` (Lw at most
+        BWD_MAX_LEVELS on the card).
       dfeats: (N, Lw*F) f32 cotangent of feats; djac: (3, N, Lw*Fj) f32
-        cotangent of jac, or None (no jacobian in the forward).
+        cotangent of jac, or None (no jacobian in the forward). Their
+        last axis is contiguous; the other strides are free.
       bf16: round each cell's per-lane cotangent to bfloat16 before the
         f32 add, as the JAX path does when it reads the table through a
         bf16 storage copy (its gathered block's cotangent is bf16).
@@ -253,30 +259,57 @@ def brick_reduce_bwd(grad, rows, lf, dfeats, djac, F: int, jac_lo: int = 0,
                          f"{grad.device}")
     Fj = _jac_window(F, jac_lo, jac_hi)
     dev = grad.device
-    build.check_cuda_tensor("grad", grad, (torch.float32,), 2, dev)
+    # 16-byte rows: the kernel adds each lattice point's F lanes with
+    # vector atomics
+    build.check_cuda_tensor("grad", grad, (torch.float32,), 2, dev, align=16)
     build.check_cuda_tensor("rows", rows, (torch.int32,), 2, dev)
     build.check_cuda_tensor("lf", lf, (torch.float32,), 3, dev)
-    build.check_cuda_tensor("dfeats", dfeats, (torch.float32,), 2, dev)
     Lw, N = rows.shape
     W = grad.shape[1]
-    if F not in SUPPORTED_F or W < 27 * F:
+    if F not in SUPPORTED_F or W < 27 * F or W % 4:
         raise ValueError(f"brick_reduce_bwd: unsupported F={F}, W={W}")
-    if lf.shape != (8, Lw, N) or dfeats.shape != (N, Lw * F):
-        raise ValueError(f"shape mismatch: lf {tuple(lf.shape)}, dfeats "
-                         f"{tuple(dfeats.shape)}, rows {(Lw, N)}")
+    if Lw > BWD_MAX_LEVELS:
+        raise ValueError(f"brick_reduce_bwd: Lw = {Lw} > {BWD_MAX_LEVELS}")
+    if lf.shape != (8, Lw, N):
+        raise ValueError(f"shape mismatch: lf {tuple(lf.shape)}, rows "
+                         f"{(Lw, N)}")
+    vec = _check_rows("dfeats", dfeats, (N, Lw * F), dev)
+    dj_strides = (0, 0)
     if djac is not None:
-        build.check_cuda_tensor("djac", djac, (torch.float32,), 3, dev)
-        if djac.shape != (3, N, Lw * Fj):
-            raise ValueError(f"djac shape {tuple(djac.shape)}")
+        vec |= _check_rows("djac", djac, (3, N, Lw * Fj), dev) << 1
+        dj_strides = djac.stride()[:2]
     if Lw * N == 0:
         return grad
     with torch.cuda.device(dev):
         build.launch("ingp_brick_reduce_bwd", build.ptr(grad),
                      grad.shape[0], build.ptr(rows), build.ptr(lf),
-                     build.ptr(dfeats), build.ptr(djac), Lw, N, W, F,
-                     int(djac is not None), jac_lo, Fj, int(bf16),
-                     build.stream_of(dev))
+                     build.ptr(dfeats), dfeats.stride(0), build.ptr(djac),
+                     *dj_strides, Lw, N, W, F, int(djac is not None),
+                     jac_lo, Fj, int(bf16), vec, build.stream_of(dev))
     return grad
+
+
+def _check_rows(name, t, shape, dev) -> int:
+    """A cotangent handed to `brick_reduce_bwd`: f32 on dev of `shape`,
+    each row (the last axis) contiguous, at any outer strides. Returns 1
+    when its rows may be read with 16-byte loads (16-byte aligned start,
+    strides and row length multiples of 4 floats), else 0."""
+    if t.device != dev or t.dtype != torch.float32:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                         f"float32 on {dev}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    if t.data_ptr() % 4:
+        raise ValueError(f"{name}: data pointer not 4-byte aligned")
+    return int(t.data_ptr() % 16 == 0 and shape[-1] % 4 == 0
+               and all(s % 4 == 0 for s in t.stride()[:-1]))
+
+
+def rows_unit_stride(t):
+    """t, or a contiguous copy where its last axis is not contiguous."""
+    return t if t.stride(-1) == 1 or t.shape[-1] <= 1 else t.contiguous()
 
 
 class BrickReduceFn(torch.autograd.Function):
@@ -304,9 +337,9 @@ class BrickReduceFn(torch.autograd.Function):
     def backward(ctx, dfeats, djac):
         rows, lf = ctx.saved_tensors
         sink, F, jac_lo, jac_hi, bf16 = ctx.cfg
-        dj = djac.contiguous() if djac.numel() else None
-        brick_reduce_bwd(sink.buffer(), rows, lf, dfeats.contiguous(), dj,
-                         F, jac_lo, jac_hi, bf16)
+        dj = rows_unit_stride(djac) if djac.numel() else None
+        brick_reduce_bwd(sink.buffer(), rows, lf, rows_unit_stride(dfeats),
+                         dj, F, jac_lo, jac_hi, bf16)
         return (sink.token_grad(),) + (None,) * 8
 
 

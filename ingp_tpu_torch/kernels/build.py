@@ -38,8 +38,8 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P, _P],
     "ingp_ray_reduce_bwd": [_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P],
-    "ingp_brick_reduce_bwd": [_P, _I64, _P, _P, _P, _P, _I, _I64, _I, _I,
-                              _I, _I, _I, _I, _P],
+    "ingp_brick_reduce_bwd": [_P, _I64, _P, _P, _P, _I64, _P, _I64, _I64,
+                              _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P],
     "ingp_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P],
     # the probes' kernels (ingp_tpu_torch/probes)
@@ -49,6 +49,10 @@ _SIGNATURES = {
                              _I64, _I, _I, _P],
     "ingp_probe_split_k2": [_I, _I, _P, _I64, _P, _P, _P, _P, _I, _I64,
                             _P],
+    "ingp_probe_split_k2b": [_I, _I, _I, _P, _P, _I64, _P, _P, _P, _P, _I,
+                             _I64, _P],
+    "ingp_probe_split_k3b": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P],
     "ingp_probe_row_gather": [_P, _I64, _I, _P, _P, _I64, _P],
     "ingp_probe_onchip_gather": [_I, _P, _I, _I, _P, _P, _I64, _P],
     "ingp_probe_gather": [_I, _P, _I64, _I, _P, _P, _I64, _I, _P],

@@ -10,14 +10,21 @@ The backward (`composite_bwd`, `csrc/composite.cu`) replaces
 `_run_bwd` of composite_pallas.py: the closed form of
 volumerendering.cu plus the dL/dws term, extended by the aux
 composites, whose cotangents reach the samples as dAux * w and reach
-dL/dws as sum_c dAux_c * aux_c. `composite` runs forward and backward
-as one `torch.autograd.Function` when a gradient is wanted.
+dL/dws as sum_c dAux_c * aux_c. Its kernel takes a ray per warp and
+keeps 9 floats per sample in shared memory, so S is at most
+`BWD_MAX_S`. It decides which samples are included from the same
+serially summed bits as the forward kernel. `composite` runs forward
+and backward as one `torch.autograd.Function` when a gradient is
+wanted.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+
+# composite.cu: 8 rays per block, 9 floats per sample in 227 KB
+BWD_MAX_S = 227 * 1024 // (4 * 9 * 8)
 
 
 def composite_plain(sigmas, deltas, ts, valid, T_threshold: float,
@@ -192,6 +199,8 @@ def composite_bwd(sigmas, deltas, ts, valid, T_threshold: float, rgbs, aux,
             or dws.shape != (R, S) or dC.shape != (R, 3)
             or dAux.shape != (R, C)):
         raise ValueError("composite_bwd: shape mismatch")
+    if S > BWD_MAX_S:
+        raise ValueError(f"composite_bwd: S = {S} > {BWD_MAX_S} samples")
     dsig = torch.empty((R, S), device=dev)
     drgb = torch.empty((3, R, S), device=dev)
     daux = torch.empty((C, R, S), device=dev)

@@ -38,16 +38,39 @@
 // _fbr_bwd (_bwd_kernel), which writes the cotangent of the gathered
 // (n, W) row block for the gather's backward to scatter-add into the
 // table. The forward here fused the gather, so the backward fuses the
-// scatter: one thread per (level, sample) cell computes the per-lane
-// cotangent df*w + ((jx*d1 + jy*d2) + jz*d3) * scale of its 8 corner
-// points x F features and adds each straight into the f32 master
-// gradient row rows[l, n] with f32 atomics. With BF16 each lane value is
-// rounded to bf16 first (the JAX path's bf16 gathered block has a bf16
-// cotangent). The fine, hashed levels that reach this kernel rarely put
-// two cells of one launch on the same row, so the atomics seldom collide.
+// scatter: each (level, sample) cell computes the per-lane cotangent
+// df*w + ((jx*d1 + jy*d2) + jz*d3) * scale of its 8 corner points x F
+// features and adds it into the f32 master gradient row rows[l, n]. With
+// BF16 each cell's lane values are rounded to bf16 before any sum (the
+// JAX path's bf16 gathered block has a bf16 cotangent per cell).
 //
-// Bound on the H100: bytes. Per cell: one row id, 7 lf floats, F (+3*Fj)
-// cotangent floats, and a read-modify-write of 8*F master-gradient floats.
+// Bound on the H100: bytes. Per cell: one row id, 6 lf floats (7 with a
+// jacobian), F (+3*Fj) cotangent floats, and a read-modify-write of the
+// master points it touches. The old form (a thread per cell,
+// level-fastest: lf and rows read at stride N, df and dj read with
+// scalar loads at a 4*F-byte stride, 8*F scalar atomics per cell; the
+// K2 bwd split's `full`, probe_split.cu) spent its time on its 64
+// scalar atomics per cell: the split's no-atomics stub takes 73-97% of
+// it away, reading the same bytes coalesced -8% to +2%. On training's
+// inputs a run of consecutive samples at one level on one row holds
+// ~1.3 real cells, so summing runs before the flush would save few
+// atomics; the streams' zero-padded tail (one long run of zero
+// cotangents) adds nothing. So a block owns a tile of S samples x Lw
+// levels (S*Lw <= 256 cells, k2_tile_samples) and
+//   1. copies the tile's df rows and each dj plane's rows (contiguous
+//      slabs of Lw*F and Lw*Fj floats at the caller's row stride: the
+//      backward of torch.cat hands over column slices) into shared
+//      memory with 16-byte loads, at a padded row stride whose 16-byte
+//      words fall in distinct banks for 8 consecutive samples;
+//   2. a thread per cell, level-major (sample-fastest, so its row id
+//      and lf loads are coalesced), computes its 8 corners' F lane
+//      values from the staged cotangents and adds each corner with
+//      16-byte vector atomics (ingp_red_point: 2 per corner at F = 8, 16
+//      per cell instead of 64), skipping a corner whose lanes are all 0
+//      and a cell whose cotangents are all 0 (the padded tail, most of a
+//      training launch's cells).
+// The vector atomics still take most of the time left (the split's
+// no-atomics stub).
 #include "trilerp.cuh"
 
 namespace {
@@ -254,109 +277,220 @@ int dispatch(int F, const void* table, int64_t n_rows, const void* rows,
   }
 }
 
+// Floats between two staged cotangent rows of len floats: a whole number
+// of 16-byte words, odd, so that 8 consecutive rows' words fall in 8
+// distinct groups of 4 banks.
+__host__ __device__ __forceinline__ int k2b_row_stride(int len) {
+  const int q = k2_round4(len);
+  return ((q >> 2) & 1) ? q : q + 4;
+}
+
+__host__ __forceinline__ size_t k2b_smem_bytes(int Lw, int F, int Fj,
+                                              bool jac) {
+  const int S = k2_tile_samples(Lw);
+  return sizeof(float) * (size_t)S *
+         (k2b_row_stride(Lw * F) + (jac ? 3 * k2b_row_stride(Lw * Fj) : 0));
+}
+
+// The block copies n rows of len floats, `stride` floats apart in global
+// memory, into shared memory Q floats apart: 16-byte loads with vec
+// (src 16-byte aligned, stride and len multiples of 4), else scalar.
+__device__ __forceinline__ void k2b_stage(float* dst,
+                                          const float* __restrict__ src,
+                                          int64_t stride, int len, int Q,
+                                          int n, bool vec) {
+  if (vec) {
+    const int w = len >> 2;
+    for (int i = threadIdx.x; i < n * w; i += blockDim.x) {
+      const int row = i / w, k = i - row * w;
+      reinterpret_cast<float4*>(dst + row * Q)[k] =
+          __ldg(reinterpret_cast<const float4*>(src + row * stride) + k);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * len; i += blockDim.x) {
+      const int row = i / len, k = i - row * len;
+      dst[row * Q + k] = __ldg(src + row * stride + k);
+    }
+  }
+}
+
+// F floats of shared memory at p (16-byte aligned for F = 4, 8; 8-byte
+// for F = 2) into registers.
+template <int F>
+__device__ __forceinline__ void k2b_get(const float* p, float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < F; i += 4) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i / 4];
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+}
+
+// vec: bit 0 the df rows, bit 1 the dj rows may be read with 16-byte
+// loads.
 template <int F, bool JAC, bool BF16>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kK2Threads)
     brick_reduce_bwd_kernel(float* __restrict__ grad, int64_t n_rows,
                             const int* __restrict__ rows,
                             const float* __restrict__ lf,
-                            const float* __restrict__ df,
-                            const float* __restrict__ dj, int Lw, int64_t N,
-                            int W, int jac_lo, int Fj) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+                            const float* __restrict__ df, int64_t df_stride,
+                            const float* __restrict__ dj, int64_t dj_plane,
+                            int64_t dj_stride, int Lw, int64_t N, int W,
+                            int jac_lo, int Fj, int vec) {
+  extern __shared__ __align__(16) float k2b_smem[];
+  const int S = k2_tile_samples(Lw);
+  const int Qf = k2b_row_stride(Lw * F), Qj = k2b_row_stride(Lw * Fj);
+  float* s_df = k2b_smem;
+  float* s_dj = s_df + S * Qf;   // 3 planes of S*Qj
+  const int64_t n0 = (int64_t)blockIdx.x * S;
+  const int s_eff = (int)min((int64_t)S, N - n0);   // the ragged last tile
   const int64_t n_cells = (int64_t)Lw * N;
-  if (i >= n_cells) return;
-  const int64_t n = i / Lw;
-  const int l = (int)(i - n * Lw);
-  const int64_t c = (int64_t)l * N + n;
-  const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
-  const int r = rows[c];
-  if (!ingp_local_ok(lx, ly, lz) || r < 0 || r >= n_rows) return;
-  const float fx = lf[3 * n_cells + c], fy = lf[4 * n_cells + c],
-              fz = lf[5 * n_cells + c], sc = lf[6 * n_cells + c];
-  float dfv[F], jx[F], jy[F], jz[F];
-  const float* dfp = df + n * ((int64_t)Lw * F) + (int64_t)l * F;
-  const int64_t plane = N * (int64_t)Lw * Fj;
-  const float* djp = dj + n * ((int64_t)Lw * Fj) + (int64_t)l * Fj;
+
+  // 1. the tile's cotangent rows
+  k2b_stage(s_df, df + n0 * df_stride, df_stride, Lw * F, Qf, s_eff,
+            vec & 1);
+  if (JAC) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) {
-    dfv[f] = dfp[f];
-    const bool in_win = JAC && f >= jac_lo && f < jac_lo + Fj;
-    jx[f] = in_win ? djp[f - jac_lo] : 0.f;
-    jy[f] = in_win ? djp[plane + f - jac_lo] : 0.f;
-    jz[f] = in_win ? djp[2 * plane + f - jac_lo] : 0.f;
+    for (int p = 0; p < 3; ++p)
+      k2b_stage(s_dj + p * S * Qj, dj + p * dj_plane + n0 * dj_stride,
+                dj_stride, Lw * Fj, Qj, s_eff, vec & 2);
   }
+  __syncthreads();
+
+  // 2. a thread per cell, level-major: t = l*S + n
+  const int t = threadIdx.x;
+  const int l = t / S, n = t - l * S;
+  if (l >= Lw || n >= s_eff) return;
+  const int64_t c = (int64_t)l * N + n0 + n;
+  // every load of the cell issued before its validity test
+  const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
+  const float fx = lf[3 * n_cells + c], fy = lf[4 * n_cells + c],
+              fz = lf[5 * n_cells + c];
+  const float sc = JAC ? lf[6 * n_cells + c] : 0.f;
+  const int r = rows[c];
+  float dfv[F], jx[F], jy[F], jz[F];
+  k2b_get<F>(s_df + n * Qf + l * F, dfv);
+#pragma unroll
+  for (int f = 0; f < F; ++f) jx[f] = jy[f] = jz[f] = 0.f;
+  if (JAC) {
+    const float* q = s_dj + n * Qj;
+    if (jac_lo == 0 && Fj == F) {
+      k2b_get<F>(q + l * F, jx);
+      k2b_get<F>(q + S * Qj + l * F, jy);
+      k2b_get<F>(q + 2 * S * Qj + l * F, jz);
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        if (f < jac_lo || f >= jac_lo + Fj) continue;
+        const int e = l * Fj + f - jac_lo;
+        jx[f] = q[e];
+        jy[f] = q[S * Qj + e];
+        jz[f] = q[2 * S * Qj + e];
+      }
+    }
+  }
+  // a cell with all-zero cotangents (the streams' padded tail) adds
+  // nothing: every lane value would be 0
+  bool live = false;
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+    live |= dfv[f] != 0.f || jx[f] != 0.f || jy[f] != 0.f || jz[f] != 0.f;
+  if (!live || !ingp_local_ok(lx, ly, lz) || r < 0 || r >= n_rows) return;
   float* row = grad + (int64_t)r * W;
   const int ix = (int)lx, iy = (int)ly, iz = (int)lz;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int a = k >> 2, b = (k >> 1) & 1, e = k & 1;
-    float w, d1, d2, d3;
+    float w, d1, d2, d3, v[F];
     ingp_point_planes(a, b, e, fx, fy, fz, w, d1, d2, d3);
-    float* pt = row + (9 * (ix + a) + 3 * (iy + b) + (iz + e)) * F;
+    bool any = false;
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       const bool in_win = JAC && f >= jac_lo && f < jac_lo + Fj;
-      float v = ingp_lane_ct(dfv[f], w, in_win, jx[f], jy[f], jz[f], d1, d2,
-                             d3, sc);
-      if (BF16) v = ingp_round_bf16(v);
-      if (v != 0.f) atomicAdd(pt + f, v);
+      v[f] = ingp_lane_ct(dfv[f], w, in_win, jx[f], jy[f], jz[f], d1, d2,
+                          d3, sc);
+      if (BF16) v[f] = ingp_round_bf16(v[f]);
+      any |= v[f] != 0.f;
     }
+    if (any)
+      ingp_red_point<F>(row + (9 * (ix + a) + 3 * (iy + b) + (iz + e)) * F,
+                        v);
   }
 }
 
-template <int F, bool JAC>
-void launch_bwd(int bf16, void* grad, int64_t n_rows, const void* rows,
-                const void* lf, const void* df, const void* dj, int Lw,
-                int64_t N, int W, int jac_lo, int Fj, cudaStream_t s) {
-  const int threads = 256;
-  const unsigned blocks =
-      (unsigned)(((int64_t)Lw * N + threads - 1) / threads);
-  if (bf16)
-    brick_reduce_bwd_kernel<F, JAC, true><<<blocks, threads, 0, s>>>(
-        (float*)grad, n_rows, (const int*)rows, (const float*)lf,
-        (const float*)df, (const float*)dj, Lw, N, W, jac_lo, Fj);
-  else
-    brick_reduce_bwd_kernel<F, JAC, false><<<blocks, threads, 0, s>>>(
-        (float*)grad, n_rows, (const int*)rows, (const float*)lf,
-        (const float*)df, (const float*)dj, Lw, N, W, jac_lo, Fj);
+template <int F, bool JAC, bool BF16>
+int launch_bwd(void* grad, int64_t n_rows, const void* rows, const void* lf,
+               const void* df, int64_t df_stride, const void* dj,
+               int64_t dj_plane, int64_t dj_stride, int Lw, int64_t N,
+               int W, int jac_lo, int Fj, int vec, cudaStream_t s) {
+  const size_t bytes = k2b_smem_bytes(Lw, F, Fj, JAC);
+  auto kernel = brick_reduce_bwd_kernel<F, JAC, BF16>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int S = k2_tile_samples(Lw);
+  kernel<<<(unsigned)((N + S - 1) / S), kK2Threads, bytes, s>>>(
+      (float*)grad, n_rows, (const int*)rows, (const float*)lf,
+      (const float*)df, df_stride, (const float*)dj, dj_plane, dj_stride,
+      Lw, N, W, jac_lo, Fj, vec);
+  return (int)cudaGetLastError();
 }
 
 template <int F>
-void dispatch_bwd_jac(int with_jac, int bf16, void* grad, int64_t n_rows,
-                      const void* rows, const void* lf, const void* df,
-                      const void* dj, int Lw, int64_t N, int W, int jac_lo,
-                      int Fj, cudaStream_t s) {
+int dispatch_bwd(int with_jac, int bf16, void* grad, int64_t n_rows,
+                 const void* rows, const void* lf, const void* df,
+                 int64_t df_stride, const void* dj, int64_t dj_plane,
+                 int64_t dj_stride, int Lw, int64_t N, int W, int jac_lo,
+                 int Fj, int vec, cudaStream_t s) {
+#define BWD_ARGS                                                       \
+  grad, n_rows, rows, lf, df, df_stride, dj, dj_plane, dj_stride, Lw, N, \
+      W, jac_lo, Fj, vec, s
   if (with_jac)
-    launch_bwd<F, true>(bf16, grad, n_rows, rows, lf, df, dj, Lw, N, W,
-                        jac_lo, Fj, s);
-  else
-    launch_bwd<F, false>(bf16, grad, n_rows, rows, lf, df, dj, Lw, N, W,
-                         jac_lo, Fj, s);
+    return bf16 ? launch_bwd<F, true, true>(BWD_ARGS)
+                : launch_bwd<F, true, false>(BWD_ARGS);
+  return bf16 ? launch_bwd<F, false, true>(BWD_ARGS)
+              : launch_bwd<F, false, false>(BWD_ARGS);
+#undef BWD_ARGS
 }
 
 }  // namespace
 
-// grad (n_rows, W) f32, accumulated into; rows (Lw, N) int32; lf
-// (8, Lw, N) f32; df (N, Lw*F) f32; dj (3, N, Lw*Fj) f32 or null.
-// Returns cudaGetLastError() after the launch (0 = success).
+// grad (n_rows, W) f32, 16-byte aligned rows, accumulated into; rows
+// (Lw, N) int32; lf (8, Lw, N) f32; df (N, Lw*F) f32 with row stride
+// df_stride floats; dj (3, N, Lw*Fj) f32 with plane and row strides
+// dj_plane, dj_stride floats, or null; Lw <= 256. vec: bit 0 df, bit 1
+// dj may be read with 16-byte loads. Returns cudaGetLastError() after the
+// launch (0 = success).
 extern "C" int ingp_brick_reduce_bwd(void* grad, int64_t n_rows,
                                      const void* rows, const void* lf,
-                                     const void* df, const void* dj, int Lw,
-                                     int64_t N, int W, int F, int with_jac,
-                                     int jac_lo, int Fj, int bf16,
+                                     const void* df, int64_t df_stride,
+                                     const void* dj, int64_t dj_plane,
+                                     int64_t dj_stride, int Lw, int64_t N,
+                                     int W, int F, int with_jac, int jac_lo,
+                                     int Fj, int bf16, int vec,
                                      void* stream) {
   if ((int64_t)Lw * N == 0) return 0;
+  if (Lw > kK2Threads) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define ARGS with_jac, bf16, grad, n_rows, rows, lf, df, df_stride, dj, \
+             dj_plane, dj_stride, Lw, N, W, jac_lo, Fj, vec, s
   switch (F) {
-    case 2: dispatch_bwd_jac<2>(with_jac, bf16, grad, n_rows, rows, lf, df,
-                                dj, Lw, N, W, jac_lo, Fj, s); break;
-    case 4: dispatch_bwd_jac<4>(with_jac, bf16, grad, n_rows, rows, lf, df,
-                                dj, Lw, N, W, jac_lo, Fj, s); break;
-    case 8: dispatch_bwd_jac<8>(with_jac, bf16, grad, n_rows, rows, lf, df,
-                                dj, Lw, N, W, jac_lo, Fj, s); break;
+    case 2: return dispatch_bwd<2>(ARGS);
+    case 4: return dispatch_bwd<4>(ARGS);
+    case 8: return dispatch_bwd<8>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef ARGS
 }
 
 // table (n_rows, W) of dtype t_bf16 ? bf16 : f32; rows (Lw, N) int32;

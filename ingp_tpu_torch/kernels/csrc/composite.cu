@@ -20,10 +20,7 @@
 // K3 backward (ingp_composite_bwd): replaces composite_pallas.py _run_bwd
 // (_bwd_kernel), the closed form of volumerendering.cu:222-241 plus the
 // dL/dws term. The aux composites A_c = sum_s w_s aux_cs fold in as
-// dws_s += sum_c dAux_c aux_cs and daux_cs = dAux_c w_s. One thread per
-// ray walks the ray twice: the first pass recomputes the weights as the
-// forward does and sums O, D, C and sum_s dws_s w_s; the second pass keeps
-// the inclusive prefix sums and writes, per sample,
+// dws_s += sum_c dAux_c aux_cs and daux_cs = dAux_c w_s. Per sample,
 //   dsigma = dt * (dO (1 - O) + dD (t T' - (D - prefD)) + T' dws
 //                  - (sum dws w - pref dws w)
 //                  + sum_c dC_c (rgb_c T' - (C_c - pref_c)))
@@ -33,12 +30,44 @@
 // gradient.
 //
 // Bound on the H100: bytes. Per (ray, sample) it reads sigma, dt, t,
-// valid, 3 rgb, C aux and dws (twice; the second pass finds them in L1/L2)
-// and writes dsigma, 3 drgb and C daux; tens of flops per sample.
+// valid, 3 rgb, C aux and dws and writes dsigma, 3 drgb and C daux; tens
+// of flops per sample. A thread per ray (the old form, the K1/K2/K3
+// split's `k3 bwd full`) left most of the card idle (8192 rays are 64
+// blocks of 128 threads on 132 SMs), loaded every channel at the ray's
+// S*4-byte stride across the warp and read the aux channels twice. Here
+// a warp takes a ray (8 rays per 256-thread block), its lanes the ray's
+// samples in segments of 32:
+//   pass 1, per segment: every input loaded once, coalesced (a warp
+//     reads 128 contiguous bytes of each channel); dws_eff = dws +
+//     sum_c dAux_c aux_c computed once; the inclusive csum of sd in
+//     K3 forward's serial front-to-back order (one lane sums the
+//     segment's sd out of shared memory, carrying the sum from segment
+//     to segment, with the same rounding as the forward: k3_sd, k3_T),
+//     so that T > thr includes exactly the samples the forward weighted;
+//     w, T', dt (or -1 where not included), t, rgb and dws_eff kept in
+//     shared memory; the lane partials of O, D, C and sum dws_eff w;
+//   the totals by __shfl_xor_sync reductions;
+//   pass 2, per segment: the prefix sums of w t, w rgb and dws_eff w by
+//     __shfl_up_sync inclusive scans carried across segments (they enter
+//     only as differences from the totals), and the outputs written
+//     coalesced.
+// Any S works while a warp's 9*S floats of shared memory fit the block.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+// The include rule's transmittance, shared by K3 forward and backward so
+// that both decide T > thr from the same bits: sd = valid ? sigma*dt : 0
+// and its inclusive front-to-back sum csum, each product and sum rounded
+// on its own (never contracted into a fused multiply-add), and the
+// transmittance before the sample T = exp(-(csum - sd)).
+__device__ __forceinline__ float k3_sd(bool v, float sig, float dt) {
+  return v ? __fmul_rn(sig, dt) : 0.f;
+}
+__device__ __forceinline__ float k3_T(float csum, float sd) {
+  return expf(-__fsub_rn(csum, sd));
+}
 
 __global__ void __launch_bounds__(128)
     composite_fwd_kernel(const float* __restrict__ sig,
@@ -62,9 +91,9 @@ __global__ void __launch_bounds__(128)
   for (int s = 0; s < S; ++s) {
     const int64_t i = base + s;
     const bool v = valid[i] != 0;
-    const float sd = v ? sig[i] * dt[i] : 0.f;
-    csum += sd;
-    const float T = expf(-(csum - sd));
+    const float sd = k3_sd(v, sig[i], dt[i]);
+    csum = __fadd_rn(csum, sd);
+    const float T = k3_T(csum, sd);
     const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
     ws[i] = w;
     if (Ts) Ts[i] = T;
@@ -93,7 +122,27 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-__global__ void __launch_bounds__(128)
+// shared memory per warp: kK3Fields planes of S floats
+enum K3Field { K3_CSUM = 0, K3_W, K3_TA, K3_DT, K3_T, K3_R0, K3_R1, K3_R2,
+               K3_DE, kK3Fields };
+constexpr int kK3Warps = 8;   // rays per block
+
+__device__ __forceinline__ float k3_scan(float v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += o;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float k3_total(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kK3Warps * 32)
     composite_bwd_kernel(const float* __restrict__ sig,
                          const float* __restrict__ dt,
                          const float* __restrict__ ts,
@@ -107,65 +156,118 @@ __global__ void __launch_bounds__(128)
                          const float* __restrict__ dAux,
                          float* __restrict__ dsig, float* __restrict__ drgb,
                          float* __restrict__ daux) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  extern __shared__ float k3_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= R) return;   // the whole warp: no block-wide barrier below
+  float* sm = k3_smem + (size_t)warp * kK3Fields * S;
   const int64_t base = (int64_t)r * S;
   const int64_t plane = (int64_t)R * S;
   const float* dA = dAux + (int64_t)r * C;
-  const float dC0 = dC[3 * r], dC1 = dC[3 * r + 1], dC2 = dC[3 * r + 2];
-  // dL/dws of sample i with the aux cotangents folded in
-  auto dws_eff = [&](int64_t i) {
-    float v = dws[i];
-    for (int c = 0; c < C; ++c) v += dA[c] * aux[c * plane + i];
-    return v;
-  };
-  float csum = 0.f, O = 0.f, D = 0.f, C0 = 0.f, C1 = 0.f, C2 = 0.f,
-        Wd = 0.f;
-  for (int s = 0; s < S; ++s) {
+
+  // pass 1: inputs, the forward's csum, weights, totals
+  float csum = 0.f;   // lane 0: the ray's running sum of sd
+  float O = 0.f, D = 0.f, C0 = 0.f, C1 = 0.f, C2 = 0.f, Wd = 0.f;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    const bool in = s < S;
     const int64_t i = base + s;
-    const bool v = valid[i] != 0;
-    const float sd = v ? sig[i] * dt[i] : 0.f;
-    csum += sd;
-    const float T = expf(-(csum - sd));
-    const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
-    O += w;
-    D += w * ts[i];
-    C0 += w * rgbs[i];
-    C1 += w * rgbs[plane + i];
-    C2 += w * rgbs[2 * plane + i];
-    Wd += dws_eff(i) * w;
+    bool v = false;
+    float sd = 0.f, dtv = 0.f, t = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f,
+          de = 0.f;
+    if (in) {
+      v = valid[i] != 0;
+      dtv = dt[i];
+      sd = k3_sd(v, sig[i], dtv);
+      t = ts[i];
+      r0 = rgbs[i];
+      r1 = rgbs[plane + i];
+      r2 = rgbs[2 * plane + i];
+      de = dws[i];
+      for (int c = 0; c < C; ++c) de += dA[c] * aux[c * plane + i];
+      sm[K3_CSUM * S + s] = sd;
+    }
+    __syncwarp();
+    if (lane == 0) {   // K3 forward's serial order
+      const int n = min(32, S - s0);
+      float* cs = sm + K3_CSUM * S + s0;
+      for (int j = 0; j < n; ++j) {
+        csum = __fadd_rn(csum, cs[j]);
+        cs[j] = csum;
+      }
+    }
+    __syncwarp();
+    if (in) {
+      const float T = k3_T(sm[K3_CSUM * S + s], sd);
+      const bool inc = v && T > thr;
+      const float alpha = 1.f - expf(-sd);
+      const float w = inc ? alpha * T : 0.f;
+      sm[K3_W * S + s] = w;
+      sm[K3_TA * S + s] = T * (1.f - alpha);
+      sm[K3_DT * S + s] = inc ? dtv : -1.f;
+      sm[K3_T * S + s] = t;
+      sm[K3_R0 * S + s] = r0;
+      sm[K3_R1 * S + s] = r1;
+      sm[K3_R2 * S + s] = r2;
+      sm[K3_DE * S + s] = de;
+      O += w;
+      D += w * t;
+      C0 += w * r0;
+      C1 += w * r1;
+      C2 += w * r2;
+      Wd += de * w;
+    }
   }
+  O = k3_total(O);
+  D = k3_total(D);
+  C0 = k3_total(C0);
+  C1 = k3_total(C1);
+  C2 = k3_total(C2);
+  Wd = k3_total(Wd);
+  __syncwarp();
+
+  // pass 2: prefix sums carried across segments, outputs
   const float dOr = dO[r], dDr = dD[r];
-  csum = 0.f;
-  float pD = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f, pW = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const int64_t i = base + s;
-    const bool v = valid[i] != 0;
-    const float sd = v ? sig[i] * dt[i] : 0.f;
-    csum += sd;
-    const float T = expf(-(csum - sd));
-    const bool inc = v && T > thr;
-    const float alpha = 1.f - expf(-sd);
-    const float w = inc ? alpha * T : 0.f;
-    const float Ta = T * (1.f - alpha);
-    const float t = ts[i];
-    const float r0 = rgbs[i], r1 = rgbs[plane + i], r2 = rgbs[2 * plane + i];
-    const float de = dws_eff(i);
-    pD += w * t;
-    p0 += w * r0;
-    p1 += w * r1;
-    p2 += w * r2;
-    pW += de * w;
-    float acc = dOr * (1.f - O) + dDr * (t * Ta - (D - pD));
-    acc = acc + Ta * de - (Wd - pW);
-    acc = acc + dC0 * (r0 * Ta - (C0 - p0));
-    acc = acc + dC1 * (r1 * Ta - (C1 - p1));
-    acc = acc + dC2 * (r2 * Ta - (C2 - p2));
-    dsig[i] = inc ? dt[i] * acc : 0.f;
-    drgb[i] = dC0 * w;
-    drgb[plane + i] = dC1 * w;
-    drgb[2 * plane + i] = dC2 * w;
-    for (int c = 0; c < C; ++c) daux[c * plane + i] = dA[c] * w;
+  const float dC0 = dC[3 * r], dC1 = dC[3 * r + 1], dC2 = dC[3 * r + 2];
+  float cD = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, cW = 0.f;   // carries
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    const bool in = s < S;
+    float w = 0.f, Ta = 0.f, dtv = -1.f, t = 0.f, r0 = 0.f, r1 = 0.f,
+          r2 = 0.f, de = 0.f;
+    if (in) {
+      w = sm[K3_W * S + s];
+      Ta = sm[K3_TA * S + s];
+      dtv = sm[K3_DT * S + s];
+      t = sm[K3_T * S + s];
+      r0 = sm[K3_R0 * S + s];
+      r1 = sm[K3_R1 * S + s];
+      r2 = sm[K3_R2 * S + s];
+      de = sm[K3_DE * S + s];
+    }
+    const float pD = cD + k3_scan(w * t, lane);
+    const float p0 = c0 + k3_scan(w * r0, lane);
+    const float p1 = c1 + k3_scan(w * r1, lane);
+    const float p2 = c2 + k3_scan(w * r2, lane);
+    const float pW = cW + k3_scan(de * w, lane);
+    if (in) {
+      const int64_t i = base + s;
+      float acc = dOr * (1.f - O) + dDr * (t * Ta - (D - pD));
+      acc = acc + Ta * de - (Wd - pW);
+      acc = acc + dC0 * (r0 * Ta - (C0 - p0));
+      acc = acc + dC1 * (r1 * Ta - (C1 - p1));
+      acc = acc + dC2 * (r2 * Ta - (C2 - p2));
+      dsig[i] = dtv >= 0.f ? dtv * acc : 0.f;
+      drgb[i] = dC0 * w;
+      drgb[plane + i] = dC1 * w;
+      drgb[2 * plane + i] = dC2 * w;
+      for (int c = 0; c < C; ++c) daux[c * plane + i] = dA[c] * w;
+    }
+    cD = __shfl_sync(0xffffffffu, pD, 31);
+    c0 = __shfl_sync(0xffffffffu, p0, 31);
+    c1 = __shfl_sync(0xffffffffu, p1, 31);
+    c2 = __shfl_sync(0xffffffffu, p2, 31);
+    cW = __shfl_sync(0xffffffffu, pW, 31);
   }
 }
 
@@ -184,9 +286,17 @@ extern "C" int ingp_composite_bwd(const void* sigmas, const void* deltas,
                                   void* dsig, void* drgb, void* daux,
                                   void* stream) {
   if (R == 0) return 0;
-  const int threads = 128;
-  composite_bwd_kernel<<<(R + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
+  if (S == 0) return 0;
+  const size_t bytes = sizeof(float) * kK3Fields * (size_t)S * kK3Warps;
+  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  composite_bwd_kernel<<<(R + kK3Warps - 1) / kK3Warps, kK3Warps * 32,
+                         bytes, (cudaStream_t)stream>>>(
       (const float*)sigmas, (const float*)deltas, (const float*)ts,
       (const unsigned char*)valid, (const float*)rgbs, (const float*)aux, C,
       thr, R, S, (const float*)dws, (const float*)dO, (const float*)dD,

@@ -54,6 +54,28 @@
 //     K2_COALESCED     the features stored feature-major, (F, Lw*N) at
 //                      cell i = n*Lw + l, coalesced along i
 //
+//   K2 backward (brick_reduce_bwd_kernel before the tiled form of
+//   brickreduce.cu replaced it: a thread per (level, sample) cell,
+//   level-fastest, lf and rows read at stride N, df and dj read with
+//   scalar loads at a 4*F-byte stride across the warp, each of the 8*F
+//   lane cotangents added into the master with its own scalar f32
+//   atomicAdd), F = Fj = 8, with and without dj, f32 or bf16 cells:
+//     K2B_FULL         that body, unchanged
+//     K2B_NO_ATOMICS   each lane value is added into a register instead
+//                      of the master; the block's sum of them is written
+//                      to scratch[block] (so the compiler keeps the work)
+//     K2B_CONTIGUOUS   every input read at thread-contiguous addresses:
+//                      lf and rows at the flat level-major index i, df
+//                      and dj feature-major (df[f*cells + i]) -- the same
+//                      bytes, coalesced, each cell given other inputs
+//     K2B_VECTOR       each corner's F lanes added with two 16-byte
+//                      float4 atomics (sm_90) instead of 8 scalar ones,
+//                      none where all F are 0 (as `full` skips each 0)
+//
+//   K3 backward (composite_bwd_kernel of composite.cu before the
+//   warp-per-ray form replaced it: a thread per ray walking its S
+//   samples twice), K3B_FULL only, unchanged.
+//
 // Bound on the H100: bytes, as rayreduce.cu and brickreduce.cu. Nothing
 // here ships: the wrapper is ingp_tpu_torch/probes/kernel_split.py.
 #include "trilerp.cuh"
@@ -73,6 +95,8 @@ enum BwdMode { B_FULL = 0, B_NO_ATOMICS = 1, B_NO_PLANES = 2, B_WALK_1 = 3,
                B_STAGED = 4 };
 enum K2Mode { K2_FULL = 0, K2_NO_CORNERS = 1, K2_NO_JAC_STORES = 2,
               K2_COALESCED = 3 };
+enum K2BwdMode { K2B_FULL = 0, K2B_NO_ATOMICS = 1, K2B_CONTIGUOUS = 2,
+                 K2B_VECTOR = 3 };
 
 // acc[f] += bf16(bf16(w) * v[f]): the product of the weight rounded to
 // bf16 and a bf16 feature pair, rounded to bf16, summed in f32.
@@ -410,6 +434,185 @@ int launch_k2(const void* table, int64_t n_rows, const void* rows,
   return (int)cudaGetLastError();
 }
 
+// brick_reduce_bwd_kernel before the tiled form (brickreduce.cu), F = Fj
+// = 8, with the K2BwdMode stubs. No early return: K2B_NO_ATOMICS reduces
+// over the whole block.
+template <int MODE, bool JAC, bool BF16>
+__global__ void __launch_bounds__(256)
+    split_k2b_kernel(float* __restrict__ grad, float* __restrict__ scratch,
+                     int64_t n_rows, const int* __restrict__ rows,
+                     const float* __restrict__ lf,
+                     const float* __restrict__ df,
+                     const float* __restrict__ dj, int Lw, int64_t N) {
+  constexpr int F = kF;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n_cells = (int64_t)Lw * N;
+  float sum = 0.f;   // K2B_NO_ATOMICS: what the atomics would have added
+  if (i < n_cells) {
+    const int64_t n = i / Lw;
+    const int l = (int)(i - n * Lw);
+    const int64_t c = MODE == K2B_CONTIGUOUS ? i : (int64_t)l * N + n;
+    const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
+    const int r = rows[c];
+    if (ingp_local_ok(lx, ly, lz) && r >= 0 && r < n_rows) {
+      const float fx = lf[3 * n_cells + c], fy = lf[4 * n_cells + c],
+                  fz = lf[5 * n_cells + c], sc = lf[6 * n_cells + c];
+      const int64_t plane = n_cells * F;
+      float dfv[F], jx[F], jy[F], jz[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        // K2B_CONTIGUOUS: feature-major, df[f*cells + i]; else the
+        // cell's own F values at i*F (4*F-byte stride across the warp)
+        const int64_t o = MODE == K2B_CONTIGUOUS ? f * n_cells + i
+                                                 : i * F + f;
+        dfv[f] = df[o];
+        jx[f] = JAC ? dj[o] : 0.f;
+        jy[f] = JAC ? dj[plane + o] : 0.f;
+        jz[f] = JAC ? dj[2 * plane + o] : 0.f;
+      }
+      float* row = grad + (int64_t)r * kW;
+      const int ix = (int)lx, iy = (int)ly, iz = (int)lz;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int a = k >> 2, b = (k >> 1) & 1, e = k & 1;
+        float w, d1, d2, d3, v[F];
+        ingp_point_planes(a, b, e, fx, fy, fz, w, d1, d2, d3);
+        float* pt = row + (9 * (ix + a) + 3 * (iy + b) + (iz + e)) * F;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          v[f] = ingp_lane_ct(dfv[f], w, JAC, jx[f], jy[f], jz[f], d1, d2,
+                              d3, sc);
+          if (BF16) v[f] = ingp_round_bf16(v[f]);
+        }
+        if constexpr (MODE == K2B_NO_ATOMICS) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) sum += v[f];
+        } else if constexpr (MODE == K2B_VECTOR) {
+          bool any = false;
+#pragma unroll
+          for (int f = 0; f < F; ++f) any |= v[f] != 0.f;
+          if (any) ingp_red_point<F>(pt, v);
+        } else {
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            if (v[f] != 0.f) atomicAdd(pt + f, v[f]);
+        }
+      }
+    }
+  }
+  if constexpr (MODE == K2B_NO_ATOMICS) {
+    __shared__ float s_sum[8];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = sum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) t += s_sum[w];
+      scratch[blockIdx.x] = t;
+    }
+  }
+}
+
+template <int MODE>
+int launch_k2b(int with_jac, int bf16, void* grad, void* scratch,
+               int64_t n_rows, const void* rows, const void* lf,
+               const void* df, const void* dj, int Lw, int64_t N,
+               cudaStream_t s) {
+  const unsigned blocks = (unsigned)(((int64_t)Lw * N + 255) / 256);
+#define K2B_ARGS                                                          \
+  (float*)grad, (float*)scratch, n_rows, (const int*)rows,                \
+      (const float*)lf, (const float*)df, (const float*)dj, Lw, N
+  if (with_jac) {
+    if (bf16) split_k2b_kernel<MODE, true, true><<<blocks, 256, 0, s>>>(K2B_ARGS);
+    else split_k2b_kernel<MODE, true, false><<<blocks, 256, 0, s>>>(K2B_ARGS);
+  } else {
+    if (bf16) split_k2b_kernel<MODE, false, true><<<blocks, 256, 0, s>>>(K2B_ARGS);
+    else split_k2b_kernel<MODE, false, false><<<blocks, 256, 0, s>>>(K2B_ARGS);
+  }
+#undef K2B_ARGS
+  return (int)cudaGetLastError();
+}
+
+// composite_bwd_kernel before the warp-per-ray form (composite.cu),
+// unchanged: one thread walks one ray twice.
+__global__ void __launch_bounds__(128)
+    split_k3b_kernel(const float* __restrict__ sig,
+                     const float* __restrict__ dt,
+                     const float* __restrict__ ts,
+                     const unsigned char* __restrict__ valid,
+                     const float* __restrict__ rgbs,
+                     const float* __restrict__ aux, int C, float thr, int R,
+                     int S, const float* __restrict__ dws,
+                     const float* __restrict__ dO,
+                     const float* __restrict__ dD,
+                     const float* __restrict__ dC,
+                     const float* __restrict__ dAux,
+                     float* __restrict__ dsig, float* __restrict__ drgb,
+                     float* __restrict__ daux) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int64_t base = (int64_t)r * S;
+  const int64_t plane = (int64_t)R * S;
+  const float* dA = dAux + (int64_t)r * C;
+  const float dC0 = dC[3 * r], dC1 = dC[3 * r + 1], dC2 = dC[3 * r + 2];
+  // dL/dws of sample i with the aux cotangents folded in
+  auto dws_eff = [&](int64_t i) {
+    float v = dws[i];
+    for (int c = 0; c < C; ++c) v += dA[c] * aux[c * plane + i];
+    return v;
+  };
+  float csum = 0.f, O = 0.f, D = 0.f, C0 = 0.f, C1 = 0.f, C2 = 0.f,
+        Wd = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const int64_t i = base + s;
+    const bool v = valid[i] != 0;
+    const float sd = v ? sig[i] * dt[i] : 0.f;
+    csum += sd;
+    const float T = expf(-(csum - sd));
+    const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
+    O += w;
+    D += w * ts[i];
+    C0 += w * rgbs[i];
+    C1 += w * rgbs[plane + i];
+    C2 += w * rgbs[2 * plane + i];
+    Wd += dws_eff(i) * w;
+  }
+  const float dOr = dO[r], dDr = dD[r];
+  csum = 0.f;
+  float pD = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f, pW = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const int64_t i = base + s;
+    const bool v = valid[i] != 0;
+    const float sd = v ? sig[i] * dt[i] : 0.f;
+    csum += sd;
+    const float T = expf(-(csum - sd));
+    const bool inc = v && T > thr;
+    const float alpha = 1.f - expf(-sd);
+    const float w = inc ? alpha * T : 0.f;
+    const float Ta = T * (1.f - alpha);
+    const float t = ts[i];
+    const float r0 = rgbs[i], r1 = rgbs[plane + i], r2 = rgbs[2 * plane + i];
+    const float de = dws_eff(i);
+    pD += w * t;
+    p0 += w * r0;
+    p1 += w * r1;
+    p2 += w * r2;
+    pW += de * w;
+    float acc = dOr * (1.f - O) + dDr * (t * Ta - (D - pD));
+    acc = acc + Ta * de - (Wd - pW);
+    acc = acc + dC0 * (r0 * Ta - (C0 - p0));
+    acc = acc + dC1 * (r1 * Ta - (C1 - p1));
+    acc = acc + dC2 * (r2 * Ta - (C2 - p2));
+    dsig[i] = inc ? dt[i] * acc : 0.f;
+    drgb[i] = dC0 * w;
+    drgb[plane + i] = dC1 * w;
+    drgb[2 * plane + i] = dC2 * w;
+    for (int c = 0; c < C; ++c) daux[c * plane + i] = dA[c] * w;
+  }
+}
+
 }  // namespace
 
 // table (n_rows, 256) bf16; urows (B, U) int32; uid (B, K) int32;
@@ -496,4 +699,49 @@ extern "C" int ingp_probe_split_k2(int mode, int with_jac,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS
+}
+
+// grad (n_rows, 256) f32, accumulated into (all modes but
+// K2B_NO_ATOMICS); scratch (ceil(Lw*N / 256),) f32, written by
+// K2B_NO_ATOMICS only (else null); rows (Lw, N) int32; lf (8, Lw, N) f32;
+// df (N, Lw*8) f32; dj (3, N, Lw*8) f32 with with_jac, else null. bf16:
+// round each cell's lane cotangent to bf16 first. mode: K2BwdMode.
+// Returns cudaGetLastError().
+extern "C" int ingp_probe_split_k2b(int mode, int with_jac, int bf16,
+                                    void* grad, void* scratch,
+                                    int64_t n_rows, const void* rows,
+                                    const void* lf, const void* df,
+                                    const void* dj, int Lw, int64_t N,
+                                    void* stream) {
+  if ((int64_t)Lw * N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ARGS with_jac, bf16, grad, scratch, n_rows, rows, lf, df, dj, Lw, N, s
+  switch (mode) {
+    case K2B_FULL: return launch_k2b<K2B_FULL>(ARGS);
+    case K2B_NO_ATOMICS: return launch_k2b<K2B_NO_ATOMICS>(ARGS);
+    case K2B_CONTIGUOUS: return launch_k2b<K2B_CONTIGUOUS>(ARGS);
+    case K2B_VECTOR: return launch_k2b<K2B_VECTOR>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
+}
+
+// The arguments of ingp_composite_bwd (composite.cu). Returns
+// cudaGetLastError().
+extern "C" int ingp_probe_split_k3b(const void* sigmas, const void* deltas,
+                                    const void* ts, const void* valid,
+                                    const void* rgbs, const void* aux,
+                                    int C, float thr, int R, int S,
+                                    const void* dws, const void* dO,
+                                    const void* dD, const void* dC,
+                                    const void* dAux, void* dsig,
+                                    void* drgb, void* daux, void* stream) {
+  if (R == 0) return 0;
+  split_k3b_kernel<<<(R + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const float*)sigmas, (const float*)deltas, (const float*)ts,
+      (const unsigned char*)valid, (const float*)rgbs, (const float*)aux, C,
+      thr, R, S, (const float*)dws, (const float*)dO, (const float*)dD,
+      (const float*)dC, (const float*)dAux, (float*)dsig, (float*)drgb,
+      (float*)daux);
+  return (int)cudaGetLastError();
 }

@@ -26,8 +26,9 @@
 // in k order (the plain version's order: with bf16 a slot summed in
 // another order can round to another bf16 value).
 //
-// Bound on the H100: bytes (per cell: uid, 7 lf floats, F + 3*Fj
-// cotangent floats; per slot a read-modify-write of its touched lanes).
+// Bound on the H100: bytes (per cell: uid, 6 lf floats (7 with a
+// jacobian), F + 3*Fj cotangent floats; per slot a read-modify-write of
+// its touched lanes).
 // A thread per lane that walks all K cells of the row one after another
 // is a latency chain: at each cell only the 64 lanes of its 8 corner
 // points have work, and each step waits on the last. So a block takes
@@ -47,8 +48,9 @@
 //      point over the run's cells in k order out of shared memory
 //      (one 16-byte read per cell that has the point as a corner) and
 //      flushes once, rounded as the plain version rounds it, with
-//      16-byte atomics. All runs of the chunk are summed in parallel,
-//      and no thread steps through cells of other runs.
+//      16-byte atomics (ingp_red_point). All runs of the chunk are
+//      summed in parallel, and no thread steps through cells of other
+//      runs.
 // A run that reaches the end of a chunk carries its partial sums to the
 // next chunk in shared memory, so a row of any K is summed in k order.
 #include <type_traits>
@@ -204,22 +206,6 @@ __device__ __forceinline__ void bwd_get(const __nv_bfloat16* p,
   }
 }
 
-// acc (F lanes of one lattice point) added into the master row at dst,
-// with 16-byte (8-byte for F = 2) vector atomics (sm_90): each float is
-// added atomically on its own; a lane whose sum is 0 adds +0, which
-// changes no value (the plain version adds the whole slot row).
-template <int F>
-__device__ __forceinline__ void bwd_red(float* dst, const float (&acc)[F]) {
-  if constexpr (F % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < F; i += 4)
-      atomicAdd(reinterpret_cast<float4*>(dst + i),
-                make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]));
-  } else {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(acc[0], acc[1]));
-  }
-}
-
 // 3 blocks per SM: ptxas then keeps the kernel within 80 registers
 // (measured faster on the card than 2 blocks at 114 registers)
 template <int F, bool JAC, bool BF16>
@@ -253,7 +239,7 @@ __global__ void __launch_bounds__(kBwdThreads, 3)
       any |= acc[f] != 0.f;
       if (BF16) acc[f] = ingp_round_bf16(acc[f]);
     }
-    if (r >= 0 && any) bwd_red<F>(grad + (int64_t)r * W + p * F, acc);
+    if (r >= 0 && any) ingp_red_point<F>(grad + (int64_t)r * W + p * F, acc);
   };
 
   int prev_vuid = -1;   // uid of the row's last valid cell so far

@@ -131,3 +131,20 @@ __device__ __forceinline__ float ingp_lane_ct(float df, float w, bool jac,
                             __fmul_rn(jz, d3));
   return __fadd_rn(v, __fmul_rn(t, sc));
 }
+
+// v (the F lanes of one lattice point) added into a master-gradient row
+// at dst, with 16-byte (8-byte for F = 2) vector atomics (sm_90): each
+// float is added atomically on its own; a lane of 0 adds +0, which
+// changes no value. dst must be 16-byte (8-byte) aligned.
+template <int F>
+__device__ __forceinline__ void ingp_red_point(float* dst,
+                                               const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < F; i += 4)
+      atomicAdd(reinterpret_cast<float4*>(dst + i),
+                make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  }
+}

@@ -41,6 +41,21 @@ flags of one source, kernels/csrc/probe_split.cu:
             no-jac-stores (the jacobian is not stored, so its
             arithmetic goes too), coalesced-feats (the features stored
             feature-major, coalesced along the cells).
+  K2 bwd    full (the body the tiled kernel replaced: a thread per cell,
+            level-fastest, lf and rows read at stride N, df and dj read
+            with scalar loads at a 32-byte stride across the warp, 64
+            scalar f32 atomics per cell), shipping
+            (`kernels.brickreduce` `brick_reduce_bwd`), no-atomics (each
+            lane value added into a register; the block's sum is written
+            to scratch[block], one float per block), contiguous-reads
+            (every input read at thread-contiguous addresses: the same
+            bytes, each cell given another cell's lf and row),
+            vector-atomics (each corner's 8 lanes added with two 16-byte
+            atomics instead of 8 scalar ones, none where all 8 are 0);
+            bf16 cells, as training's bf16 tables give them.
+  K3 bwd    full (the body the warp-per-ray kernel replaced: a thread per
+            ray walking its samples twice) and shipping
+            (`kernels.composite` `composite_bwd`).
 
 The TPU probe's `factored-E` (point-domain weights expanded to lanes by
 an MXU dot) has no counterpart: the CUDA kernel builds each corner's
@@ -60,7 +75,10 @@ corner points of its brick's cell (0, 0, 0), which `ingp_local_ok`
 accepts. The K2 split runs at training's two K2 shapes: rows
 (4, 196,608) with the jacobian and (16, 65,536) (the grid refresh)
 without, drawn over a table of the bench's density shape (207,295 x 256
-bf16), lf over all 8 brick cells.
+bf16), lf over all 8 brick cells; the K2 bwd split at training's
+(4, 196,608) with dj over the density shape and without it over the rgb
+shape (715,199 rows); the K3 bwd split at training's (8192, 48) with 13
+aux channels.
 
 Run on the card: python -m ingp_tpu_torch.probes.kernel_split
 (--device cpu runs the plain versions only).
@@ -72,7 +90,7 @@ import sys
 
 import torch
 
-from ..kernels import brickreduce, build, rayreduce
+from ..kernels import brickreduce, build, composite, rayreduce
 from ..kernels.brickreduce import (PLAIN_CHUNK, _lane_points, round_bf16,
                                    trilerp_rows_bwd_plain,
                                    trilerp_rows_plain)
@@ -98,6 +116,15 @@ K2_ROWS = 207_295
 # mode -> kernel mode; "shipping" runs kernels/brickreduce.py
 K2_MODES = {"full": 0, "shipping": None, "no-corners": 1,
             "no-jac-stores": 2, "coalesced-feats": 3}
+# the K2 bwd split: (group name, Lw, N, with dj, table rows)
+K2B_GROUPS = (("Lw 4, jac", 4, 196_608, True, K2_ROWS),
+              ("Lw 4, no jac", 4, 196_608, False, N_ROWS))
+# mode -> kernel mode; "shipping" runs kernels/brickreduce.py
+K2B_MODES = {"full": 0, "shipping": None, "no-atomics": 1,
+             "contiguous-reads": 2, "vector-atomics": 3}
+K3B_SHAPE = (8192, 48, 13)      # (rays, samples, aux channels)
+K3B_MODES = ("full", "shipping")
+K3_THRESHOLD = 1e-4             # training's T_threshold
 _CORNERS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
 
 
@@ -406,6 +433,163 @@ def split_k2_plain(mode: str, table, rows, lf, with_jac: bool = True):
     return f, j
 
 
+def k2b_blocks(cells: int) -> int:
+    """Blocks (of 256 cells) of the K2 bwd split's launch."""
+    return (cells + 255) // 256
+
+
+def split_k2b(mode: str, grad, rows, lf, dfeats, djac, scratch=None,
+              bf16: bool = False):
+    """K2's backward before the tiled kernel (`full`), with the piece
+    `mode` stubbed (K2B_MODES; "shipping" runs
+    `brickreduce.brick_reduce_bwd`). grad (n_rows, 256) f32, added into;
+    rows (Lw, N) int32; lf (8, Lw, N), dfeats (N, Lw*8) f32; djac
+    (3, N, Lw*8) f32 or None. Returns grad, or for no-atomics scratch
+    (k2b_blocks(Lw*N),) f32, each block's sum of its lane values. CPU
+    tensors run `split_k2b_plain`."""
+    if grad.device.type == "cpu":
+        return split_k2b_plain(mode, grad, rows, lf, dfeats, djac, scratch,
+                               bf16)
+    dev = grad.device
+    if dev.type != "cuda":
+        raise ValueError(f"split_k2b: unsupported device {dev}")
+    code = K2B_MODES[mode]
+    if code is None:
+        return brickreduce.brick_reduce_bwd(grad, rows, lf, dfeats, djac, F,
+                                            bf16=bf16)
+    Lw, Nn = rows.shape
+    _check("grad", grad, (torch.float32,), (grad.shape[0], W), dev)
+    _check("rows", rows, (torch.int32,), (Lw, Nn), dev)
+    _check("lf", lf, (torch.float32,), (8, Lw, Nn), dev)
+    _check("dfeats", dfeats, (torch.float32,), (Nn, Lw * F), dev)
+    if djac is not None:
+        _check("djac", djac, (torch.float32,), (3, Nn, Lw * F), dev)
+    if mode == "no-atomics":
+        _check("scratch", scratch, (torch.float32,),
+               (k2b_blocks(Lw * Nn),), dev)
+    with torch.cuda.device(dev):
+        build.launch("ingp_probe_split_k2b", code, int(djac is not None),
+                     int(bf16), build.ptr(grad),
+                     build.ptr(scratch if mode == "no-atomics" else None),
+                     grad.shape[0], build.ptr(rows), build.ptr(lf),
+                     build.ptr(dfeats), build.ptr(djac), Lw, Nn,
+                     build.stream_of(dev))
+    return scratch if mode == "no-atomics" else grad
+
+
+def _contiguous_inputs(rows, lf, dfeats, djac):
+    """What contiguous-reads gives cell (l, n), i = n*Lw + l: the row and
+    lf at the flat level-major index i, df and dj feature-major
+    (df_flat[f*cells + i])."""
+    Lw, Nn = rows.shape
+    cells = Lw * Nn
+    rows = rows.reshape(Nn, Lw).T
+    lf = lf.reshape(8, Nn, Lw).permute(0, 2, 1)
+    dfeats = dfeats.reshape(F, cells).T.reshape(Nn, Lw * F)
+    if djac is not None:
+        djac = djac.reshape(3, F, cells).permute(0, 2, 1).reshape(
+            3, Nn, Lw * F)
+    return rows, lf, dfeats, djac
+
+
+def split_k2b_plain(mode: str, grad, rows, lf, dfeats, djac, scratch=None,
+                    bf16: bool = False):
+    """Plain PyTorch version of `split_k2b` (same contract):
+    `brick_reduce_bwd_plain` on the inputs each cell reads; for
+    no-atomics, each 256-cell block's sum (cells in the kernel's order,
+    i = n*Lw + l) of its cells' lane cotangents."""
+    K2B_MODES[mode]                 # a KeyError names an unknown mode
+    if mode == "contiguous-reads":
+        rows, lf, dfeats, djac = _contiguous_inputs(rows, lf, dfeats, djac)
+    if mode != "no-atomics":
+        return brickreduce.brick_reduce_bwd_plain(grad, rows, lf, dfeats,
+                                                  djac, F, bf16=bf16)
+    Lw, Nn = rows.shape
+    cells = Lw * Nn
+    r = rows.T.reshape(-1).to(torch.int64)
+    ok = (r >= 0) & (r < grad.shape[0])
+    lfi = lf.permute(0, 2, 1).reshape(8, cells)
+    dfi = dfeats.reshape(cells, F)
+    dji = None if djac is None else djac.reshape(3, cells, F)
+    tot = torch.zeros(k2b_blocks(cells) * 256, device=grad.device)
+    for i0 in range(0, cells, PLAIN_CHUNK):
+        sl = slice(i0, min(i0 + PLAIN_CHUNK, cells))
+        lfc = lfi[:, sl]
+        lfc = torch.cat([torch.where(ok[sl], lfc[:3], -9.0), lfc[3:]])
+        dg = trilerp_rows_bwd_plain(lfc, dfi[sl],
+                                    None if dji is None else dji[:, sl], F,
+                                    W)
+        tot[sl] = (round_bf16(dg) if bf16 else dg).sum(1)
+    scratch.copy_(tot.reshape(-1, 256).sum(1))
+    return scratch
+
+
+def split_k3b(mode: str, sigmas, deltas, ts, valid, T_threshold, rgbs, aux,
+              dws, dO, dD, dC, dAux):
+    """K3's backward before the warp-per-ray kernel (`full`), or the
+    shipping kernel (`composite.composite_bwd`), with `composite_bwd`'s
+    arguments and outputs. CPU tensors run `composite_bwd_plain`."""
+    if mode not in K3B_MODES:
+        raise KeyError(mode)
+    args = (sigmas, deltas, ts, valid, T_threshold, rgbs, aux, dws, dO, dD,
+            dC, dAux)
+    if sigmas.device.type == "cpu":
+        return composite.composite_bwd_plain(*args)
+    if mode == "shipping":
+        return composite.composite_bwd(*args)
+    dev = sigmas.device
+    if dev.type != "cuda":
+        raise ValueError(f"split_k3b: unsupported device {dev}")
+    R, S = sigmas.shape
+    C = aux.shape[0]
+    for name, t, shape in (("sigmas", sigmas, (R, S)),
+                           ("deltas", deltas, (R, S)), ("ts", ts, (R, S)),
+                           ("rgbs", rgbs, (3, R, S)), ("aux", aux, (C, R, S)),
+                           ("dws", dws, (R, S)), ("dO", dO, (R,)),
+                           ("dD", dD, (R,)), ("dC", dC, (R, 3)),
+                           ("dAux", dAux, (R, C))):
+        _check(name, t, (torch.float32,), shape, dev)
+    _check("valid", valid, (torch.bool,), (R, S), dev, align=1)
+    dsig = torch.empty((R, S), device=dev)
+    drgb = torch.empty((3, R, S), device=dev)
+    daux = torch.empty((C, R, S), device=dev)
+    with torch.cuda.device(dev):
+        build.launch("ingp_probe_split_k3b", *(build.ptr(t) for t in (
+            sigmas, deltas, ts, valid, rgbs, aux)), C, float(T_threshold),
+            R, S, *(build.ptr(t) for t in (dws, dO, dD, dC, dAux, dsig,
+                                           drgb, daux)),
+            build.stream_of(dev))
+    return dsig, drgb, daux
+
+
+def make_k3b_inputs(gen, device, R: int, S: int, C: int):
+    """K3 bwd inputs from `gen`: each ray valid on a prefix of uniform
+    length, densities in [0, 40), dt 0.0135, rgb in [0, 1), normal aux
+    channels and cotangents."""
+    kw = dict(generator=gen, device=device)
+    n = torch.randint(0, S + 1, (R, 1), **kw)
+    valid = torch.arange(S, device=device)[None] < n
+    dt = torch.full((R, S), 0.0135, device=device)
+    return dict(sigmas=torch.rand((R, S), **kw) * 40.0, deltas=dt,
+                ts=torch.cumsum(dt, 1) + 0.3, valid=valid,
+                T_threshold=K3_THRESHOLD, rgbs=torch.rand((3, R, S), **kw),
+                aux=torch.randn((C, R, S), **kw),
+                dws=torch.randn((R, S), **kw), dO=torch.randn((R,), **kw),
+                dD=torch.randn((R,), **kw), dC=torch.randn((R, 3), **kw),
+                dAux=torch.randn((R, C), **kw))
+
+
+def k3b_bytes(inp):
+    """(bytes, f32 operations) of K3 bwd: sigma, dt, t, valid, 3 rgb, C
+    aux and dws read and dsigma, 3 drgb and C daux written per sample,
+    the per-ray cotangents read once."""
+    R, S = inp["sigmas"].shape
+    C = inp["aux"].shape[0]
+    nbytes = R * S * (4 * 3 + 1 + 12 + 4 * C + 4) + R * 4 * (2 + 3 + C) \
+        + R * S * 4 * (1 + 3 + C)
+    return nbytes, R * S * (40 + 4 * C)
+
+
 def make_k2_inputs(gen, device, Lw: int, n: int, n_rows: int):
     """A K2 group's inputs from `gen`: rows uniform over the table; lf
     with local cells over all 8 brick cells, uniform fractions and a
@@ -432,6 +616,23 @@ def k2_bytes(mode, inp, with_jac):
     nbytes = (pts * F * 2 + cells * 4 * (1 + 6 + jac)
               + cells * 4 * F * (1 + 3 * jac))
     return nbytes, cells * 8 * F * (1 + 3 * jac) * 2
+
+
+def k2b_bytes(mode, inp):
+    """(bytes, f32 operations) a K2 bwd variant must move and do: per
+    cell its row id, 6 lf floats (7 with a jacobian) and F (+3*F)
+    cotangents, and one f32 read-modify-write of each distinct master
+    address it adds into (no-atomics: none, a float per block)."""
+    rows, lf, dj = inp["rows"], inp["lf"], inp["djac"]
+    cells = rows.numel()
+    jac = dj is not None
+    if mode == "contiguous-reads":
+        rows, lf, _, _ = _contiguous_inputs(rows, lf, inp["dfeats"], dj)
+    adds = 0 if mode == "no-atomics" else \
+        _point_keys(rows.reshape(-1).long(), lf, 8) * F * 8
+    nbytes = cells * 4 * (1 + 6 + jac + F * (1 + 3 * jac)) + adds \
+        + (k2b_blocks(cells) * 4 if mode == "no-atomics" else 0)
+    return nbytes, cells * 8 * (12 + 2 * F + 7 * F * jac)
 
 
 def make_inputs(gen, device, rows: int, U: int, table, order: str):
@@ -504,10 +705,12 @@ def bwd_bytes(mode, inp):
 
 def cases(device, seed: int = 0, groups=GROUPS, n_rows: int = N_ROWS,
           fwd_modes=None, bwd_modes=None, uids=UIDS, k2_groups=K2_GROUPS,
-          k2_rows: int = K2_ROWS, k2_modes=None) -> list:
+          k2_rows: int = K2_ROWS, k2_modes=None, k2b_groups=K2B_GROUPS,
+          k2b_modes=None, k3b_shape=K3B_SHAPE) -> list:
     """One `common.Case` per (direction, mode, uid input), each over all
     groups (its time is the sum over the groups, as the TPU probe's),
-    then one per (K2 mode, K2 group)."""
+    then one per (K2 mode, K2 group), per (K2 bwd mode, K2 bwd group)
+    and per K3 bwd mode (none when k3b_shape is None)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     table = torch.randn((n_rows, W), generator=gen, device=device
                         ).to(torch.bfloat16)
@@ -531,7 +734,56 @@ def cases(device, seed: int = 0, groups=GROUPS, n_rows: int = N_ROWS,
                     for mode in (list(K2_MODES) if k2_modes is None
                                  else k2_modes)
                     if with_jac or mode != "no-jac-stores"]
+    for name, Lw, n, with_jac, rows_ in k2b_groups:
+        grad = torch.zeros((rows_, W), device=device)
+        inp = make_k2_inputs(gen, device, Lw, n, rows_)
+        inp["dfeats"] = torch.randn((n, Lw * F), generator=gen,
+                                    device=device)
+        inp["djac"] = torch.randn((3, n, Lw * F), generator=gen,
+                                  device=device) if with_jac else None
+        ones = torch.ones((Lw * n, W), device=device)
+        out += [_k2b_case(mode, name, grad, inp, ones) for mode in
+                (list(K2B_MODES) if k2b_modes is None else k2b_modes)]
+    if k3b_shape is not None:
+        inp = make_k3b_inputs(gen, device, *k3b_shape)
+        out += [_k3b_case(mode, inp) for mode in K3B_MODES]
     return out
+
+
+def _k2b_case(mode, group, grad, inp, ones):
+    rows = inp["rows"]
+    scratch = torch.zeros(k2b_blocks(rows.numel()), device=grad.device) \
+        if mode == "no-atomics" else None
+    args = (rows, inp["lf"], inp["dfeats"], inp["djac"], scratch)
+
+    def run(fn, fresh):
+        target = grad if scratch is None else scratch
+        if fresh:
+            target.zero_()
+        out = fn(mode, grad, *args, bf16=True)
+        return out.clone() if fresh else out
+
+    nbytes, flops = k2b_bytes(mode, inp)
+    return common.Case(
+        "kernel_split", f"k2 bwd {mode}, {group}",
+        lambda: run(split_k2b, True), lambda: run(split_k2b_plain, True),
+        lambda: grad.index_add_(0, rows.reshape(-1), ones),
+        "index_add_ of one row per cell into the master (the scatter "
+        "behind the TPU's K2 bwd)", nbytes, flops, "bwd",
+        "ingp_brick_reduce_bwd" if mode == "shipping"
+        else "ingp_probe_split_k2b", timed=lambda: run(split_k2b, False))
+
+
+def _k3b_case(mode, inp):
+    nbytes, flops = k3b_bytes(inp)
+    R, S = inp["sigmas"].shape
+    return common.Case(
+        "kernel_split", f"k3 bwd {mode}, ({R}, {S}) C {inp['aux'].shape[0]}",
+        lambda: split_k3b(mode, **inp),
+        lambda: composite.composite_bwd_plain(**inp), None, "", nbytes,
+        flops, "bwd",
+        "ingp_composite_bwd" if mode == "shipping"
+        else "ingp_probe_split_k3b")
 
 
 def _k2_case(mode, group, with_jac, table, inp):
@@ -606,6 +858,9 @@ PIECES = (("fwd", "no-planes", "weight build"),
 K2_PIECES = (("no-corners", "corner gather"),
              ("no-jac-stores", "jacobian arithmetic and stores"),
              ("coalesced-feats", "feature stores' stride"))
+K2B_PIECES = (("no-atomics", "scalar f32 atomics"),
+              ("contiguous-reads", "strided input reads"),
+              ("vector-atomics", "scalar, not 16-byte, atomics"))
 
 
 def piece_shares(ms: dict) -> list:
@@ -614,31 +869,32 @@ def piece_shares(ms: dict) -> list:
     lines = []
     for order in UIDS:
         for d in ("fwd", "bwd"):
-            full = ms.get(f"{d} full, {order} uid")
-            stubs = [(piece, ms.get(f"{d} {stub}, {order} uid"))
-                     for dd, stub, piece in PIECES if dd == d]
-            parts = [f"{piece} {1 - t / full:+.1%}" for piece, t in stubs
-                     if t is not None]
-            ship = ms.get(f"{d} shipping, {order} uid")
-            if ship is not None:
-                parts.append(f"shipping kernel {ship:.4f} ms "
-                             f"({ship / full - 1:+.1%} of full)")
-            if full and parts:
-                lines.append(f"K1 {d} ({order} uid, full {full:.4f} ms): "
-                             + ", ".join(parts))
+            lines += _shares(ms, f"K1 {d}", f"{d} {{}}, {order} uid",
+                             f"{order} uid",
+                             [(stub, piece) for dd, stub, piece in PIECES
+                              if dd == d])
     for group, *_ in K2_GROUPS:
-        full = ms.get(f"k2 full, {group}")
-        parts = [f"{piece} {1 - ms[v] / full:+.1%}"
-                 for stub, piece in K2_PIECES
-                 if (v := f"k2 {stub}, {group}") in ms]
-        ship = ms.get(f"k2 shipping, {group}")
-        if ship is not None:
-            parts.append(f"shipping kernel {ship:.4f} ms "
-                         f"({ship / full - 1:+.1%} of full)")
-        if full and parts:
-            lines.append(f"K2 fwd ({group}, full {full:.4f} ms): "
-                         + ", ".join(parts))
+        lines += _shares(ms, "K2 fwd", f"k2 {{}}, {group}", group,
+                         K2_PIECES)
+    for group, *_ in K2B_GROUPS:
+        lines += _shares(ms, "K2 bwd", f"k2 bwd {{}}, {group}", group,
+                         K2B_PIECES)
     return lines
+
+
+def _shares(ms, what, key, group, pieces):
+    """The share line of one group: 1 - stub / full per piece, and the
+    shipping kernel against full; key formats a mode into a variant."""
+    full = ms.get(key.format("full"))
+    parts = [f"{piece} {1 - ms[v] / full:+.1%}" for stub, piece in pieces
+             if (v := key.format(stub)) in ms]
+    ship = ms.get(key.format("shipping"))
+    if ship is not None:
+        parts.append(f"shipping kernel {ship:.4f} ms "
+                     f"({ship / full - 1:+.1%} of full)")
+    if not (full and parts):
+        return []
+    return [f"{what} ({group}, full {full:.4f} ms): " + ", ".join(parts)]
 
 
 def main(argv=None):
@@ -647,7 +903,9 @@ def main(argv=None):
     fwd_modes = list(ROWPAIR_MODES if rowpair else FWD_MODES)
     res = common.run(cases(a.device, a.seed, fwd_modes=fwd_modes,
                            bwd_modes=[] if rowpair else None,
-                           k2_groups=() if rowpair else K2_GROUPS),
+                           k2_groups=() if rowpair else K2_GROUPS,
+                           k2b_groups=() if rowpair else K2B_GROUPS,
+                           k3b_shape=None if rowpair else K3B_SHAPE),
                      a.device, a.iters)
     for s in piece_shares({c.variant: r["ms"] for c, r in res}):
         print(s, flush=True)

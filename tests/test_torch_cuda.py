@@ -355,7 +355,12 @@ def test_probe_kernels_match_plain(cuda, probe):
                                k2_groups=(("Lw 4, jac", 4, 3_000, True),
                                           ("Lw 16, no jac", 16, 700,
                                            False)),
-                               k2_rows=900),
+                               k2_rows=900,
+                               k2b_groups=(("Lw 4, jac", 4, 3_000, True,
+                                            900),
+                                           ("Lw 4, no jac", 4, 2_001, False,
+                                            1_300)),
+                               k3b_shape=(1_000, 48, 13)),
           "row_layouts": dict(shapes=(((256,), torch.bfloat16, 5000, 3000),
                                       ((16, 128), torch.bfloat16, 700, 300),
                                       ((8, 128), torch.float32, 700, 300))),
@@ -367,3 +372,164 @@ def test_probe_kernels_match_plain(cuda, probe):
         common.compare(c)
         assert build.LAUNCHES[c.symbol] > n0, c.variant
     torch.cuda.synchronize()
+
+
+# The redesigned K2 backward (tiles of S samples x Lw levels, cotangent
+# rows staged at the caller's row stride, a thread per cell adding its
+# corners with 16-byte atomics) and K3 backward (a warp per ray, segments
+# of 32 samples, the forward's serial csum).
+
+def _k2b_case(rng, Lw, N, F, Fj, R, own_rows, with_dj):
+    """A function of the device giving rows (each cell its own row with
+    own_rows), lf with -9 cells and rows outside the table, and df and
+    dj as column slices of wider tensors made on that device (torch.cat's
+    backward hands over such views)."""
+    if own_rows:
+        rows = torch.arange(Lw * N, dtype=torch.int32).reshape(Lw, N)
+    else:
+        rows = torch.from_numpy(rng.integers(0, R, (Lw, N)).astype(np.int32))
+    rows[:, ::13] = R + 3
+    lf = _lf(rng, Lw, N)
+    wide = torch.from_numpy(rng.normal(size=(N, (Lw + 2) * F)).astype(
+        np.float32))
+    djw = torch.from_numpy(rng.normal(size=(3, N, (Lw + 1) * Fj)).astype(
+        np.float32))
+
+    def on(dev):
+        dj = djw.to(dev)[:, :, Fj:] if with_dj else None
+        return (rows.to(dev), lf.to(dev), wide.to(dev)[:, F:F + Lw * F], dj)
+    return on
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("Lw,N,F,window,with_dj", [
+    (4, 196_608, 8, (0, None), True),      # training's density launch
+    (4, 196_608, 8, (0, None), False),     # training's rgb launch
+    (16, 1_000, 8, (0, None), True),
+    (3, 1_001, 4, (1, 3), True),
+    (5, 77, 2, (1, 2), True)])
+def test_k2_bwd_tiles_bitwise(cuda, bf16, Lw, N, F, window, with_dj):
+    """Each cell on its own row: no two atomics meet, so the kernel must
+    give the plain version's bits (strided cotangents, ragged tiles,
+    jacobian windows, bf16 rounding per cell)."""
+    rng = np.random.default_rng(12)
+    jac_lo, jac_hi = window
+    Fj = (F if jac_hi is None else jac_hi) - jac_lo
+    R = Lw * N
+    on = _k2b_case(rng, Lw, N, F, Fj, R, True, with_dj)
+    W = 32 * F
+    ref = k2.brick_reduce_bwd_plain(torch.zeros(R, W), *on("cpu"), F,
+                                    jac_lo, jac_hi, bf16)
+    args = on(cuda)
+    assert not args[2].is_contiguous()
+    n0 = build.LAUNCHES["ingp_brick_reduce_bwd"]
+    out = k2.brick_reduce_bwd(torch.zeros((R, W), device=cuda), *args, F,
+                              jac_lo, jac_hi, bf16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ingp_brick_reduce_bwd"] == n0 + 1
+    assert float(ref.abs().max()) > 0
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("with_dj", [True, False])
+def test_k2_bwd_matches_old_body(cuda, with_dj):
+    """The redesigned K2 backward against the body it replaced (the K2
+    bwd split's `full`) at training's shape, rows of a density-sized
+    table shared between cells, bf16: only the atomics' order differs."""
+    from ingp_tpu_torch.probes import kernel_split as ps
+    rng = np.random.default_rng(13)
+    Lw, N, R = 4, 196_608, 207_295
+    args = _k2b_case(rng, Lw, N, 8, 8, R, False, with_dj)(cuda)
+    old = ps.split_k2b("full", torch.zeros((R, 256), device=cuda),
+                       *(t if t is None else t.contiguous() for t in args),
+                       bf16=True)
+    new = k2.brick_reduce_bwd(torch.zeros((R, 256), device=cuda), *args, 8,
+                              bf16=True)
+    _close(new.cpu(), old.cpu())
+
+
+def test_k2_bwd_needs_16_byte_rows(cuda):
+    """The kernel adds each corner's lanes with 16-byte atomics: the
+    wrapper refuses a gradient whose rows are not 16-byte aligned, and
+    cotangents whose rows are not contiguous, and launches nothing."""
+    rng = np.random.default_rng(14)
+    rows, lf, df, dj = _k2b_case(rng, 4, 300, 8, 8, 40, False, True)(cuda)
+    n0 = build.LAUNCHES["ingp_brick_reduce_bwd"]
+    shifted = torch.zeros(40 * 256 + 1, device=cuda)[1:].view(40, 256)
+    with pytest.raises(ValueError):
+        k2.brick_reduce_bwd(shifted, rows, lf, df, dj, 8)
+    with pytest.raises(ValueError):
+        k2.brick_reduce_bwd(torch.zeros((40, 218), device=cuda), rows, lf,
+                            df, dj, 8)
+    column_major = torch.zeros((32, 300), device=cuda).T     # (300, 32)
+    with pytest.raises(ValueError):
+        k2.brick_reduce_bwd(torch.zeros((40, 256), device=cuda), rows, lf,
+                            column_major, dj, 8)
+    assert build.LAUNCHES["ingp_brick_reduce_bwd"] == n0
+
+
+def _k3_bwd_case(rng, R, S, C):
+    valid = torch.from_numpy(rng.random((R, S)) < 0.8)
+    valid[0] = False
+    sig = torch.from_numpy((10.0 ** rng.uniform(-2, 3, (R, S))).astype(
+        np.float32))
+    dt = torch.from_numpy(rng.uniform(0.002, 0.03, (R, S)).astype(
+        np.float32))
+    ts = torch.cumsum(dt, 1) + 0.3
+    rgbs = torch.from_numpy(rng.uniform(0, 1, (3, R, S)).astype(np.float32))
+    aux = torch.from_numpy(rng.normal(size=(C, R, S)).astype(np.float32))
+    cts = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+           for s in ((R, S), (R,), (R,), (R, 3), (R, C))]
+    return [sig, dt, ts, valid], rgbs, aux, cts
+
+
+@pytest.mark.parametrize("C", [0, 13])
+@pytest.mark.parametrize("S", [24, 48, 64, 100, 333])
+def test_k3_bwd_segments_match_plain(cuda, S, C):
+    """Rays of one or more 32-sample segments (carried csum and scans),
+    an all-invalid ray: the kernel within 1e-5 of the plain version's
+    largest value, and dsigma exactly 0 on every sample that K3
+    forward's own Ts excludes."""
+    rng = np.random.default_rng(S + C)
+    base, rgbs, aux, cts = _k3_bwd_case(rng, 999, S, C)
+    ref = k3.composite_bwd_plain(*base, 1e-4, rgbs, aux, *cts)
+    dev = [t.to(cuda) for t in base]
+    n0 = build.LAUNCHES["ingp_composite_bwd"]
+    out = k3.composite_bwd(*dev, 1e-4, rgbs.to(cuda), aux.to(cuda),
+                           *(t.to(cuda) for t in cts))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ingp_composite_bwd"] == n0 + 1
+    for a, b in zip(out, ref):
+        if b.numel():
+            _close(a, b)
+    Ts = k3.composite_fwd(*dev, 1e-4, with_Ts=True)["Ts"]
+    excluded = ~(dev[3] & (Ts > 1e-4))
+    assert bool(excluded.any()) and not bool(out[0][excluded].any())
+
+
+def test_k3_bwd_matches_old_body(cuda):
+    """The warp-per-ray K3 backward against the thread-per-ray body it
+    replaced (the split's `k3 bwd full`) at training's (8192, 48), 13
+    aux channels."""
+    from ingp_tpu_torch.probes import kernel_split as ps
+    rng = np.random.default_rng(15)
+    base, rgbs, aux, cts = _k3_bwd_case(rng, 8192, 48, 13)
+    args = [t.to(cuda) for t in base] + [1e-4, rgbs.to(cuda), aux.to(cuda)] \
+        + [t.to(cuda) for t in cts]
+    new = k3.composite_bwd(*args)
+    old = ps.split_k3b("full", *args)
+    for a, b in zip(new, old):
+        _close(a.cpu(), b.cpu())
+
+
+def test_k3_bwd_refuses_long_rays(cuda):
+    """A ray's 9 floats per sample must fit the block's shared memory:
+    S above BWD_MAX_S is refused before any launch."""
+    rng = np.random.default_rng(16)
+    S = k3.BWD_MAX_S + 1
+    base, rgbs, aux, cts = _k3_bwd_case(rng, 2, S, 1)
+    n0 = build.LAUNCHES["ingp_composite_bwd"]
+    with pytest.raises(ValueError):
+        k3.composite_bwd(*(t.to(cuda) for t in base), 1e-4, rgbs.to(cuda),
+                         aux.to(cuda), *(t.to(cuda) for t in cts))
+    assert build.LAUNCHES["ingp_composite_bwd"] == n0

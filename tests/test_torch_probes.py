@@ -594,7 +594,10 @@ def test_probe_cases_run_on_the_cpu(capsys):
     cases = (ps.cases(cpu, groups=((8, 12),), n_rows=64,
                       k2_groups=(("Lw 4, jac", 4, 40, True),
                                  ("Lw 16, no jac", 16, 9, False)),
-                      k2_rows=64)
+                      k2_rows=64,
+                      k2b_groups=(("Lw 4, jac", 4, 70, True, 64),
+                                  ("Lw 4, no jac", 4, 33, False, 80)),
+                      k3b_shape=(20, 24, 3))
              + pr.cases(cpu, shapes=(((256,), torch.bfloat16, 512, 100),))
              + pv.cases(cpu, rows=64, n=512) + pg.cases(cpu, big_rows=64))
     for c in cases:
@@ -603,6 +606,6 @@ def test_probe_cases_run_on_the_cpu(capsys):
             assert torch.equal(a, b)
     assert common.run(cases, cpu, 1) == []
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(cases) == 24 + 9 + 1 + 3 + 5
+    assert len(lines) == len(cases) == 24 + 9 + 10 + 2 + 1 + 3 + 5
     assert all("plain version on the CPU" in s for s in lines)
     assert sum(build.LAUNCHES.values()) == n0
