@@ -57,9 +57,16 @@ Phases, each line flushed and stamped with elapsed seconds:
    1e-5 of the largest value + 1e-7 and its backward variants within
    1e-5 + 1e-12 -- and fails unless that check launched its kernel;
    then it is timed (CUDA-event median of 10 runs) beside its bound,
-   its plain version and the library call. Every probe kernel must have
-   been launched by the timed runs (the checks' launches are left out
-   of the counts); none runs on the training path;
+   its plain version and the library call; the in-block gathers also
+   from a CUDA graph beside the launch floor (a one-element fill from a
+   graph, measured once) and the host's dispatch of a call, with a
+   "before/after" line for each shape whose body was replaced (the old
+   body's graph ms, host ms and host dispatch against the new one's, the
+   library call, the floor, the bound, and both launches' grid, threads
+   and cluster), and the in-block gathers' ragged, largest-table and
+   4-byte-offset cases of the card tests, bitwise. Every probe kernel
+   must have been launched by the timed runs (the checks' launches are
+   left out of the counts); none runs on the training path;
 9. the kernels JSON line (`launches`: the training window's count for
    the six package kernels, the probes phase's for the probe kernels;
    `launches_per_train_step` for all), then the result line.
@@ -1349,9 +1356,12 @@ def phase_probes():
     import torch
     from ingp_tpu_torch.kernels import build
     from ingp_tpu_torch.probes import common
-    from ingp_tpu_torch.probes import kernel_split
+    from ingp_tpu_torch.probes import gather_layouts, kernel_split
     out = {}
     checks = collections.Counter()
+    floor = common.floor_ms()
+    log(f"probes: launch floor {floor:.4f} ms (a one-element zero_() "
+        f"replayed from a CUDA graph)")
     clear_counts()
     for name, (mod, _, _, _, primary) in PROBES.items():
         t = time.time()
@@ -1363,7 +1373,8 @@ def phase_probes():
         cases = module.cases(torch.device(DEVICE), **kw)
         res = {}
         for c in cases:
-            res[c.variant] = common.measure(c, PROBE_ITERS, plain_iters=1)
+            res[c.variant] = common.measure(c, PROBE_ITERS, plain_iters=1,
+                                            floor=floor)
             checks[c.symbol] += res[c.variant]["check_launches"]
             log(f"probe {common.line(c, res[c.variant])}")
         if primary not in res:
@@ -1372,6 +1383,18 @@ def phase_probes():
             for line in kernel_split.piece_shares(
                     {v: r["ms"] for v, r in res.items()}):
                 log(f"probe {line}")
+        if module is gather_layouts:
+            for line in gather_layouts.before_after(
+                    [(c, res[c.variant]) for c in cases]):
+                log(f"probe {line}")
+            n0 = build.LAUNCHES[gather_layouts.SYMBOL]
+            edges = gather_layouts.edge_checks(torch.device(DEVICE))
+            checks[gather_layouts.SYMBOL] += (
+                build.LAUNCHES[gather_layouts.SYMBOL] - n0)
+            log(f"probe gather_layouts: {len(edges)} launches beyond the "
+                f"probe's shapes bitwise equal to their plain versions "
+                f"(ragged rows, each op's largest table, 4-byte-offset "
+                f"views)")
         del cases
         torch.cuda.synchronize()
         torch.cuda.empty_cache()

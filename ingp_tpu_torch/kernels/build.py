@@ -56,6 +56,8 @@ _SIGNATURES = {
     "ingp_probe_row_gather": [_P, _I64, _I, _P, _P, _I64, _P],
     "ingp_probe_onchip_gather": [_I, _P, _I, _I, _P, _P, _I64, _P],
     "ingp_probe_gather": [_I, _P, _I64, _I, _P, _P, _I64, _I, _P],
+    # not a launcher: the launch ingp_probe_gather plans for its shapes
+    "ingp_probe_gather_shape": [_I, _I64, _I, _I64, _I, _P],
 }
 
 # kernel launches so far, by launcher symbol; `launch` counts each one

@@ -17,57 +17,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kStages = 8;
 constexpr int kRowsPerBlock = 512;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from global to shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_copy_row(void* dst, const void* src,
-                                              uint32_t bytes,
-                                              uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __global__ void row_gather_kernel(const unsigned char* __restrict__ table,
                                   int64_t n_rows,
@@ -80,7 +35,7 @@ __global__ void row_gather_kernel(const unsigned char* __restrict__ table,
   const int rows = (int)min((int64_t)kRowsPerBlock, n - base);
   const int words = row_bytes / 16;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], 1);
+    for (int s = 0; s < kStages; ++s) ingp_mbar_init(&bar[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -88,16 +43,16 @@ __global__ void row_gather_kernel(const unsigned char* __restrict__ table,
     const int s = j % kStages;
     const int r = idx[base + j];
     if (r >= 0 && r < n_rows)
-      bulk_copy_row(buf + s * row_bytes, table + (int64_t)r * row_bytes,
+      ingp_bulk_copy(buf + s * row_bytes, table + (int64_t)r * row_bytes,
                     row_bytes, &bar[s]);
     else
-      mbar_arrive(&bar[s]);
+      ingp_mbar_arrive(&bar[s]);
   };
   if (threadIdx.x == 0)
     for (int j = 0; j < min(kStages, rows); ++j) issue(j);
   for (int j = 0; j < rows; ++j) {
     const int s = j % kStages;
-    mbar_wait(&bar[s], (j / kStages) & 1);
+    ingp_mbar_wait(&bar[s], (j / kStages) & 1);
     const int r = idx[base + j];
     const bool ok = r >= 0 && r < n_rows;
     const uint4* src = reinterpret_cast<const uint4*>(buf + s * row_bytes);

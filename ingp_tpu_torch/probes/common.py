@@ -40,7 +40,8 @@ class Case:
     card. `graph`: also time
     the kernel and the library call replayed from a CUDA graph, which
     leaves out the host's dispatch of each call (for launch-bound
-    variants)."""
+    variants). `launch`, where given: on the card, the kernel's launch
+    (grid, threads, cluster) as a dict."""
     probe: str
     variant: str
     kernel: Callable
@@ -55,6 +56,7 @@ class Case:
     row_bytes: int = 0
     timed: Callable | None = None
     graph: bool = False
+    launch: Callable | None = None
 
 
 def _flat(out):
@@ -138,12 +140,38 @@ def graph_ms(fn, launches: int = 20, iters: int = 5) -> float:
     return time_ms(g.replay, iters, CUDA) / launches
 
 
-def measure(case: Case, iters: int, plain_iters: int = 0) -> dict:
+def floor_ms() -> float:
+    """The launch floor: milliseconds per call of a one-element zero_()
+    replayed from a CUDA graph, the least any graphed launch takes."""
+    z = torch.empty(1, device=CUDA)
+    return graph_ms(z.zero_)
+
+
+def dispatch_ms(fn, calls: int = 100, iters: int = 5) -> float:
+    """Median host milliseconds per call of fn() over `calls` calls made
+    back to back while the device runs behind: the host's dispatch of a
+    call (Python, allocation, launch) without the device's time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+def measure(case: Case, iters: int, plain_iters: int = 0,
+            floor: float | None = None) -> dict:
     """On the card: check the kernel against its plain version (raising
     if kernel() launched no `case.symbol` there), then time the kernel
     and the library call (and the plain version when plain_iters > 0).
     The numbers of a kernels-line row; `check_launches` counts the
-    launches the check made."""
+    launches the check made. A graphed case also carries `floor`
+    (`floor_ms()`, taken once per phase by the caller) as floor_ms, and
+    the host's dispatch of the kernel and the library call."""
     n0 = build.LAUNCHES[case.symbol]
     err, scale = compare(case)
     checked = build.LAUNCHES[case.symbol] - n0
@@ -161,6 +189,9 @@ def measure(case: Case, iters: int, plain_iters: int = 0) -> dict:
     if case.graph:
         r["graph_ms"] = graph_ms(case.timed or case.kernel)
         r["library_graph_ms"] = graph_ms(case.library)
+        r["floor_ms"] = floor
+        r["dispatch_ms"] = dispatch_ms(case.timed or case.kernel)
+        r["library_dispatch_ms"] = dispatch_ms(case.library)
     return r
 
 
@@ -178,6 +209,10 @@ def line(case: Case, r: dict) -> str:
     if "graph_ms" in r:
         s += (f"; from a CUDA graph {r['graph_ms']:.4f} ms, library "
               f"{r['library_graph_ms']:.4f} ms")
+        if r.get("floor_ms") is not None:
+            s += f", floor {r['floor_ms']:.4f} ms"
+        s += (f"; host dispatch {r['dispatch_ms']:.4f} ms, library "
+              f"{r['library_dispatch_ms']:.4f} ms")
     if r["plain_ms"] is not None:
         s += f"; plain {r['plain_ms']:.3f} ms"
     return s + (f"; max_abs_err {r['max_abs_err']:.3e} (max |plain| "
@@ -207,13 +242,15 @@ def gpu_label() -> str:
 
 def run(cases, device, iters: int) -> list:
     """Print one line per case. On the card: each kernel checked against
-    its plain version, then timed beside its bound and library call. On
-    the CPU: the plain versions only, timed on the host clock."""
+    its plain version, then timed beside its bound and library call (and
+    the launch floor, measured once); returns [(case, numbers)]. On the
+    CPU: the plain versions only, timed on the host clock."""
     if device.type == "cuda":
         print(f"device: {gpu_label()}", flush=True)
+        floor = floor_ms()
         out = []
         for c in cases:
-            r = measure(c, iters)
+            r = measure(c, iters, floor=floor)
             print(line(c, r), flush=True)
             out.append((c, r))
         return out

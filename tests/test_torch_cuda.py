@@ -372,6 +372,52 @@ def test_probe_kernels_match_plain(cuda, probe):
         common.compare(c)
         assert build.LAUNCHES[c.symbol] > n0, c.variant
     torch.cuda.synchronize()
+    if probe == "gather_layouts":
+        _gather_edges(cuda, mod)
+
+
+def _gather_edges(cuda, pg):
+    """The in-block gathers beyond the probe's shapes (`edge_checks`:
+    both axis-0 bodies at ragged row counts on both sides of the switch
+    to the slab and at their largest tables, every flat place at the
+    largest table it takes and at ragged table and id counts, the ops
+    that take 4-byte-aligned tensors on views 4 bytes into their storage,
+    bitwise), each launch as the numpy model in
+    tests/test_torch_gather_redesign.py plans it; one more entry or row
+    than an op takes, and such views for the ops that need 16 bytes,
+    refused; at least 32 blocks for the new bodies at the probe's
+    shapes."""
+    # pytest puts tests/ on sys.path (it holds no package); `tests.` may
+    # name another package installed on the card's machine
+    from test_torch_gather_redesign import plan
+    for op, t_shape, i_shape in pg.edge_checks(cuda):
+        assert pg.launch_shape(op, t_shape, i_shape) == {
+            k: v for k, v in plan(op, t_shape, i_shape).items()
+            if k != "part"}, (op, t_shape, i_shape)
+    idx = torch.zeros((2, 32), dtype=torch.int32, device=cuda)
+    for where in ("cluster", "cluster before"):
+        with pytest.raises(ValueError):
+            pg.take_flat(torch.zeros(pg.flat_limit(where) + 2,
+                                     dtype=torch.int32, device=cuda),
+                         idx, where)
+    for before, rows in ((False, pg.AXIS0_MAX_ROWS),
+                         (True, pg.AXIS0_BEFORE_MAX_ROWS)):
+        with pytest.raises(ValueError):
+            pg.take_axis0(torch.zeros((rows + 1, 32), dtype=torch.int32,
+                                      device=cuda), idx, before)
+    table = torch.zeros((512, 128), dtype=torch.int32, device=cuda)
+    ids = torch.zeros((256, 128), dtype=torch.int32, device=cuda)
+    for t, i in ((pg.shifted(table), ids), (table, pg.shifted(ids))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pg.take_axis0(t, i)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pg.take_flat(t, i)
+    for op, t_shape, i_shape in (("axis0", (512, 128), (256, 128)),
+                                 ("axis0", (512, 128), (8192, 128)),
+                                 ("cluster", (65_536,), (256, 128))):
+        gx, gy = pg.launch_shape(op, t_shape, i_shape)["grid"]
+        assert gx * gy >= 32, (op, i_shape)
+    torch.cuda.synchronize()
 
 
 # The redesigned K2 backward (tiles of S samples x Lw levels, cotangent

@@ -145,6 +145,8 @@ def test_wrappers_reject_other_devices_and_count_no_launch():
     for fn in (lambda: pr.row_gather(meta, i),
                lambda: pv.gather_rows(meta, i),
                lambda: pg.take_flat(meta.int(), i.reshape(2, 2)),
+               lambda: pg.take_axis0(meta.int(), i.reshape(2, 2)),
+               lambda: pg.take_axis1(meta.int(), i.reshape(2, 2)),
                lambda: ps.split_fwd("full", meta, i.reshape(2, 2),
                                     i.reshape(2, 2), meta)):
         with pytest.raises(ValueError, match="unsupported device"):
@@ -606,6 +608,6 @@ def test_probe_cases_run_on_the_cpu(capsys):
             assert torch.equal(a, b)
     assert common.run(cases, cpu, 1) == []
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(cases) == 24 + 9 + 10 + 2 + 1 + 3 + 5
+    assert len(lines) == len(cases) == 24 + 9 + 10 + 2 + 1 + 3 + 8
     assert all("plain version on the CPU" in s for s in lines)
     assert sum(build.LAUNCHES.values()) == n0
