@@ -17,7 +17,8 @@ Phases, each line flushed and stamped with elapsed seconds:
    full-width inputs; the launch counts are then reset and a second
    render is timed and counted;
 4. kernels: K1, K2 and K3 on the render's captured inputs against their
-   plain PyTorch versions on the card;
+   plain PyTorch versions on the card, and K3 forward beside the body it
+   replaced ("before/after", as in phase 6);
 5. reference: a small configuration rendered on the card (kernels) and
    on the CPU (plain versions) from the same parameters must agree;
 6. train: NeRFSystem.training_step at bench.py's configuration and full
@@ -30,21 +31,24 @@ Phases, each line flushed and stamped with elapsed seconds:
    finite and falling). The first step records the first inputs of
    every variant of every kernel that it launches (K1 and K2 on each
    table, with and without a jacobian; the grid refresh's K2; K3 with
-   rgb and with Ts only; the backward kernels of both tables), and the
+   rgb and with Ts only, the latter without ts; the backward kernels of
+   both tables), and the
    later untimed steps count every kernel's calls by variant and shape;
    after the untimed steps each variant is held against its plain
    version run on the CPU (-9 cells and non-included samples must give
    exact zeros), with times (CUDA events from the host, and from a CUDA
    graph; the backward kernels into a reused gradient, K2's also with
    the gradient cold in the L2) and the bound, and so are the last
-   untimed step's K2 backward launches (the first step's are mostly
-   zero padding; these stand in the kernels line); K1 forward is timed at
-   each level-group shape; then "before/after": the K1 backward, K2
-   forward, K2 backward and K3 backward bodies that the current kernels
-   replaced (the split's `full` variants) are held to the same outputs
-   and timed beside them on the recorded inputs, from the host and from
-   a CUDA graph, K2 backward also on the last untimed step's launches
-   with the K2 bwd split's stubs;
+   untimed step's K1 and K2 backward launches (the first step's are
+   mostly zero padding; these stand in the kernels line); K1 forward is
+   timed at each level-group shape, K1 backward at each of the first
+   step's and the last untimed step's from a CUDA graph; then
+   "before/after": the K1 backward, K2 forward, K2 backward, K3 backward
+   and K3 forward bodies that the current kernels replaced (the split's
+   `full` variants) are held to the same outputs (K3 forward's ws, Ts
+   and count bitwise) and timed beside them on the recorded inputs, from
+   the host and from a CUDA graph, K2 backward also on the last untimed
+   step's launches with the K2 bwd split's stubs;
 7. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
 8. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
@@ -165,6 +169,13 @@ BEFORE_AFTER = (("fused_ray_reduce_bwd", "density table, jac"),
                 ("brick_reduce_bwd", "density table, jac"),
                 ("brick_reduce_bwd", "rgb table, no jac"),
                 ("composite_bwd", "rgb and aux"))
+# the K3 forward variants of the training step timed beside the body the
+# current kernel replaced (the split's `k3 fwd full`); the render's
+# "rgb and aux" launch too
+K3_FWD_BEFORE_AFTER = ("rgb and aux", "weights, Ts")
+# the backward kernels whose launches of step LATE_STEP are recorded,
+# checked and stand in the kernels line
+LATE = ("fused_ray_reduce_bwd", "brick_reduce_bwd")
 # the K2 bwd split's variants timed on training's recorded K2 bwd inputs
 # (not contiguous-reads: it hands cells other cells' cotangents, which on
 # these inputs puts nonzero cotangents on the padded tail's one row)
@@ -705,19 +716,18 @@ def check_k3(a, tag, ref_dev):
     """K3 forward on captured arguments a; sample counts must be equal."""
     import torch
     from ingp_tpu_torch.kernels import composite as k3
+    from ingp_tpu_torch.probes.kernel_split import k3f_bytes
     R, S = a["sigmas"].shape
     c3 = 0 if a["rgbs"] is None else 3
     C = 0 if a["aux"] is None else a["aux"].shape[0]
     log(f"kernel composite [{tag}]: sigmas {(R, S)}, rgb {c3 > 0}, aux "
-        f"channels {C}, Ts {a['with_Ts']}")
+        f"channels {C}, ts {a['ts'] is not None}, Ts {a['with_Ts']}")
     counts = (k3.composite_fwd(**a)["count"].cpu(),
               k3.composite_plain(**to_dev(a, ref_dev))["count"].cpu())
     if not torch.equal(*counts):
         raise AssertionError(f"composite [{tag}]: sample counts differ "
                              f"from plain")
-    nbytes = R * S * (13 + 4 * c3 + 4 * C + 4 + 4 * a["with_Ts"]) \
-        + R * 4 * (3 + c3 + C)
-    flops = R * S * (12 + 2 * (c3 + C))
+    nbytes, flops = k3f_bytes(a)
     return compare(
         "composite", tag, lambda: k3.composite_fwd(**a),
         lambda dev: k3.composite_plain(**to_dev(a, dev)),
@@ -824,11 +834,12 @@ def k2b_size(a, tag):
             + n_pts * F * 8, int(ok.sum()) * 8 * (12 + 2 * F + 7 * Fj))
 
 
-def check_k1_bwd(a, tag):
-    """K1 backward on captured arguments a, against the plain version on
-    the CPU."""
+def _k1b_size(a):
+    """(bytes, f32 operations, cells that read a row, slots, (row, point)
+    pairs) of K1 backward on arguments a: uid, lf and the cotangents of
+    every cell, the slots' rows and the (row, point) pairs it adds
+    into."""
     import torch
-    from ingp_tpu_torch.kernels import rayreduce as k1
     urows, uid, lf, F = a["urows"], a["uid"], a["lf"], a["F"]
     dj = a["djac"]
     B, U = urows.shape
@@ -841,14 +852,26 @@ def check_k1_bwd(a, tag):
         + u.clamp(0, U - 1)
     n_pts = _corner_points(urows.reshape(-1)[slot], lf, ok)
     n_slots = int(torch.unique(slot[ok]).numel())
-    log(f"kernel fused_ray_reduce_bwd [{tag}]: grad "
-        f"{tuple(a['grad'].shape)}, urows {tuple(urows.shape)}, uid "
-        f"{tuple(uid.shape)}, bf16 {a['bf16']}; {int(ok.sum())} cells read "
-        f"a row ({cells - int(ok.sum())} -9 or out of [0, U)), {n_slots} "
-        f"slots, {n_pts} (row, point) pairs")
     nbytes = cells * 4 * (1 + 6 + (dj is not None) + F + 3 * Fj) \
         + n_slots * 4 + n_pts * F * 8
-    flops = int(ok.sum()) * 8 * (12 + 2 * F + 7 * Fj)
+    n_ok = int(ok.sum())
+    return nbytes, n_ok * 8 * (12 + 2 * F + 7 * Fj), n_ok, n_slots, n_pts
+
+
+def check_k1_bwd(a, tag):
+    """K1 backward on captured arguments a, against the plain version on
+    the CPU."""
+    import torch
+    from ingp_tpu_torch.kernels import rayreduce as k1
+    urows, uid, lf, dj = a["urows"], a["uid"], a["lf"], a["djac"]
+    B, K = uid.shape
+    cells = B * K
+    nbytes, flops, n_ok, n_slots, n_pts = _k1b_size(a)
+    log(f"kernel fused_ray_reduce_bwd [{tag}]: grad "
+        f"{tuple(a['grad'].shape)}, urows {tuple(urows.shape)}, uid "
+        f"{tuple(uid.shape)}, bf16 {a['bf16']}; {n_ok} cells read a row "
+        f"({cells - n_ok} -9 or out of [0, U)), {n_slots} slots, {n_pts} "
+        f"(row, point) pairs")
     res = compare(
         "fused_ray_reduce_bwd", tag,
         lambda: k1.fused_ray_reduce_bwd(**_zero_grad(a, DEVICE)),
@@ -988,8 +1011,9 @@ def phase_kernels(recs, plan, cfg):
     errs["brick_reduce"] = check_k2(a, tag, DEVICE, real)["max_abs_err"]
 
     a, _ = recs["composite"].calls["rgb and aux"]
-    errs["composite"] = check_k3(a, "render, rgb and aux",
-                                 DEVICE)["max_abs_err"]
+    res = check_k3(a, "render, rgb and aux", DEVICE)
+    errs["composite"] = res["max_abs_err"]
+    k3_fwd_before_after([("render, rgb and aux", a, res["bound_ms"])])
     return errs
 
 
@@ -1058,7 +1082,7 @@ def phase_train(h):
     t = time.time()
     n_untimed = STEPS_WARMUP + STEPS_SETTLE
     for i in range(n_untimed):
-        late = record_kernels(system.model_cfg, ["brick_reduce_bwd"]) \
+        late = record_kernels(system.model_cfg, LATE) \
             if i == LATE_STEP else {}
         aux = system.training_step(tr.sample_batch(rng, BATCH))
         for r in late.values():
@@ -1089,11 +1113,17 @@ def phase_train(h):
             f"{ {f'{v} {sh}': n for (v, sh), n in sorted(r.counts.items())} }")
     del census
     with torch.no_grad():
-        late = late["brick_reduce_bwd"].calls
         checks = check_train_kernels(recs)
-        checks["brick_reduce_bwd"].update(check_late_k2_bwd(late))
+        for name in LATE:
+            checks[name].update(check_late(name, late[name].calls))
         k1_group_times(recs["fused_ray_reduce"])
-        before_after(before_after_rows(recs, checks, late))
+        k1_bwd_group_times(recs["fused_ray_reduce_bwd"],
+                           late["fused_ray_reduce_bwd"])
+        k3_fwd_before_after([(f"train, {tag}", recs["composite"].calls[tag][0],
+                              checks["composite"][tag]["bound_ms"])
+                             for tag in K3_FWD_BEFORE_AFTER])
+        before_after(before_after_rows(recs, checks,
+                                       late["brick_reduce_bwd"].calls))
     del recs, late
     batches = [stage(tr.sample_batch(rng, BATCH), system.device)
                for _ in range(STEPS_MEASURE)]
@@ -1151,17 +1181,99 @@ def check_train_kernels(recs):
     return out
 
 
-def check_late_k2_bwd(late):
-    """K2 backward on the launches of step LATE_STEP (late, {variant:
-    (arguments, output)}) against the plain version on the CPU, keyed
-    "step LATE_STEP, <variant>"."""
-    if PRIMARY["brick_reduce_bwd"] not in late:
-        raise AssertionError(f"brick_reduce_bwd "
-                             f"[{PRIMARY['brick_reduce_bwd']}] was not "
-                             f"called in step {LATE_STEP}")
+def check_late(name, late):
+    """Backward kernel `name` on the launches of step LATE_STEP (late,
+    {variant: (arguments, output)}) against the plain version on the
+    CPU, keyed "step LATE_STEP, <variant>"."""
+    if PRIMARY[name] not in late:
+        raise AssertionError(f"{name} [{PRIMARY[name]}] was not called in "
+                             f"step {LATE_STEP}")
     return {f"step {LATE_STEP}, {tag}":
-            check_k2_bwd(a, f"train step {LATE_STEP}, {tag}")
+            CHECKS[name](a, f"train step {LATE_STEP}, {tag}")
             for tag, (a, _) in late.items()}
+
+
+def k1_bwd_group_times(first, late):
+    """K1 backward at every level-group shape of the first step (first)
+    and of step LATE_STEP (late), Recorders with the first arguments of
+    each (variant, shape): CUDA-graph ms into one reused zeroed gradient
+    beside the bound, one line per shape, then the sums over the step's
+    launches."""
+    import torch
+    from ingp_tpu_torch.kernels import rayreduce as k1
+    from ingp_tpu_torch.probes.common import graph_ms
+    sums = {}
+    rows = collections.defaultdict(dict)
+    for when, rec in (("first", first), ("late", late)):
+        grads = {}
+        total = 0.0
+        for (v, shape), a in sorted(rec.shapes.items()):
+            g = grads.get(v)
+            if g is None:
+                g = grads[v] = torch.zeros(a["grad"].shape, device=DEVICE)
+            g.zero_()
+            ms = graph_ms(lambda a=a, g=g: k1.fused_ray_reduce_bwd(
+                **{**a, "grad": g}))
+            bound, _ = bound_of(*_k1b_size(a)[:2])
+            n = rec.counts[(v, shape)]
+            total += ms * n
+            rows[(v, shape)][when] = (ms, bound, n)
+        sums[when] = total
+        del grads
+    for (v, shape), r in sorted(rows.items()):
+        parts = [f"{'first step' if w == 'first' else f'step {LATE_STEP}'} "
+                 f"{ms:.4f} ms from a CUDA graph (bound {b:.4f} ms, graph at "
+                 f"{b / ms:.1%} of it; {n} launch{'es' * (n > 1)})"
+                 for w, (ms, b, n) in sorted(r.items())]
+        log(f"kernel fused_ray_reduce_bwd [train, {v}] group {shape}: "
+            + "; ".join(parts))
+    log(f"kernel fused_ray_reduce_bwd: graph ms summed over the step's "
+        f"launches: first step {sums['first']:.4f} ms, step {LATE_STEP} "
+        f"{sums['late']:.4f} ms")
+
+
+def k3_fwd_before_after(rows):
+    """The K3 forward body that the current kernel replaced (the split's
+    `k3 fwd full`, handed a plane of zeros where the call has no ts, as
+    the step gave it before) beside the kernel, on recorded arguments,
+    rows (tag, arguments, bound ms). ws, Ts and count must be bitwise
+    equal to the old body's, the other outputs within the forward check's
+    tolerance; then each is timed in turns old, new, new, old (CUDA-event
+    medians of 20 runs from the host) and replayed from a CUDA graph."""
+    import torch
+    from ingp_tpu_torch.kernels import composite as k3
+    from ingp_tpu_torch.probes import kernel_split as ps
+    from ingp_tpu_torch.probes.common import graph_ms
+    for tag, a, bound in rows:
+        a_old = a if a["ts"] is not None else {
+            **a, "ts": torch.zeros_like(a["sigmas"])}
+        old = lambda: ps.split_k3f("full", **a_old)   # noqa: E731
+        new = lambda: k3.composite_fwd(**a)           # noqa: E731
+        o, n = old(), new()
+        bitwise = ["ws", "count"] + (["Ts"] if a["with_Ts"] else [])
+        for k in bitwise:
+            if not torch.equal(o[k], n[k]):
+                raise AssertionError(f"before/after composite [{tag}]: {k} "
+                                     f"differs from the old body's")
+        rest = sorted(set(n) - set(bitwise))
+        err, scale = max_err([n[k] for k in rest], [o[k] for k in rest])
+        if not err <= 1e-5 * scale + 1e-7:
+            raise AssertionError(f"before/after composite [{tag}]: the new "
+                                 f"kernel and the old body differ by "
+                                 f"{err:.3e}")
+        del o, n
+        t = [cuda_ms(fn, 20) for fn in (old, new, new, old)]
+        g = [graph_ms(fn) for fn in (old, new)]
+        was, now = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        log(f"before/after composite [{tag}]: old (the replaced K3 fwd "
+            f"body{', reading a zero ts plane' if a['ts'] is None else ''})"
+            f" {was:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), new {now:.4f} ms "
+            f"({t[1]:.4f}, {t[2]:.4f}) from the host; replayed from a CUDA "
+            f"graph old {g[0]:.4f} ms, new {g[1]:.4f} ms ({g[0] / g[1]:.2f}x, "
+            f"new at {bound / g[1]:.1%} of the bound {bound:.4f} ms, old at "
+            f"{bound / g[0]:.1%}); {', '.join(bitwise)} bitwise equal to the "
+            f"old body's, {', '.join(rest)} agree to {err:.3e} (max "
+            f"{scale:.3e})")
 
 
 def _old_new(name, a):

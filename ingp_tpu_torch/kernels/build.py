@@ -53,6 +53,8 @@ _SIGNATURES = {
                              _I64, _P],
     "ingp_probe_split_k3b": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P],
+    "ingp_probe_split_k3f": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P,
+                             _P, _P, _P, _P, _P, _P, _P],
     "ingp_probe_row_gather": [_P, _I64, _I, _P, _P, _I64, _P],
     "ingp_probe_onchip_gather": [_I, _P, _I, _I, _P, _P, _I64, _P],
     "ingp_probe_gather": [_I, _P, _I64, _I, _P, _P, _I64, _I, _P],

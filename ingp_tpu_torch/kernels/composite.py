@@ -3,8 +3,11 @@
 Replaces the forward of ingp_tpu/ops/pallas/composite_pallas.py
 `composite_pallas` (and the XLA `render_weights` / `composite_rays`
 that the JAX main path runs). The CUDA kernel (`csrc/composite.cu`)
-walks one ray per thread; it is bound by bytes moved (see the source's
-note).
+takes a ray per group of 16 lanes, its lanes the ray's samples in
+segments of 16, and sums the include rule's csum serially, as the
+thread-per-ray body it replaced did, so ws, Ts and count keep those
+bits; it is bound by bytes moved (see the source's note). Without ts
+(`render_weights`) it reads no ts plane and makes no depth.
 
 The backward (`composite_bwd`, `csrc/composite.cu`) replaces
 `_run_bwd` of composite_pallas.py: the closed form of
@@ -29,7 +32,7 @@ BWD_MAX_S = 227 * 1024 // (4 * 9 * 8)
 
 def composite_plain(sigmas, deltas, ts, valid, T_threshold: float,
                     rgbs=None, aux=None, with_Ts: bool = False):
-    """Plain PyTorch version of `composite` (same contract)."""
+    """Plain PyTorch version of `composite_fwd` (same contract)."""
     sd = torch.where(valid, sigmas * deltas, 0.0)
     csum = torch.cumsum(sd, -1)
     Ts = torch.exp(-(csum - sd))
@@ -38,9 +41,10 @@ def composite_plain(sigmas, deltas, ts, valid, T_threshold: float,
     out = {
         "ws": ws,
         "opacity": ws.sum(-1),
-        "depth": (ws * ts).sum(-1),
         "count": (ws > 0).sum(-1).to(torch.int32),
     }
+    if ts is not None:
+        out["depth"] = (ws * ts).sum(-1)
     if with_Ts:
         out["Ts"] = Ts
     if rgbs is not None:
@@ -56,14 +60,13 @@ def composite(sigmas, deltas, ts, valid, T_threshold: float, rgbs=None,
     w.r.t. sigmas, rgbs and aux through `CompositeFn` when grad mode is
     on and one of them requires a gradient; deltas, ts, valid and the
     outputs Ts and count carry no gradient."""
-    sigmas, deltas, ts, valid = (t.contiguous()
-                                 for t in (sigmas, deltas, ts, valid))
-    rgbs = None if rgbs is None else rgbs.contiguous()
-    aux = None if aux is None else aux.contiguous()
+    sigmas, deltas, ts, valid, rgbs, aux = (
+        None if t is None else t.contiguous()
+        for t in (sigmas, deltas, ts, valid, rgbs, aux))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (sigmas, rgbs, aux)):
-        if rgbs is None:
-            raise ValueError("composite: a gradient needs rgbs")
+        if rgbs is None or ts is None:
+            raise ValueError("composite: a gradient needs rgbs and ts")
         C = 0 if aux is None else aux.shape[0]
         aux_in = sigmas.new_empty((0,) + sigmas.shape) if aux is None \
             else aux
@@ -86,27 +89,39 @@ def composite_fwd(sigmas, deltas, ts, valid, T_threshold: float, rgbs=None,
     """Front-to-back composite of (R, S) sample segments.
 
     Args:
-      sigmas, deltas, ts: (R, S) f32; valid: (R, S) bool.
+      sigmas, deltas: (R, S) f32; ts: (R, S) f32 or None (no depth);
+        valid: (R, S) bool.
       rgbs: (3, R, S) f32 or None; aux: (C, R, S) f32 or None (extra
         channels composited with the same weights, e.g. normals and
         semantics).
       with_Ts: also return the transmittance before each sample.
 
-    Returns dict ws (R, S), opacity (R,), depth (R,), count (R,) int32
-    (samples with w > 0), and rgb (R, 3), aux (R, C), Ts (R, S) when
-    asked. A sample is included iff valid and T > T_threshold, as in
-    ingp_tpu's render_weights."""
+    Returns dict ws (R, S), opacity (R,), count (R,) int32 (samples
+    with w > 0), depth (R,) when ts is given, and rgb (R, 3), aux (R, C),
+    Ts (R, S) when asked. A sample is included iff valid and T >
+    T_threshold, as in ingp_tpu's render_weights."""
     if sigmas.device.type == "cpu":
         return composite_plain(sigmas, deltas, ts, valid, T_threshold, rgbs,
                                aux, with_Ts)
+    return launch_fwd("ingp_composite_fwd", sigmas, deltas, ts, valid,
+                      T_threshold, rgbs, aux, with_Ts)
+
+
+def launch_fwd(symbol: str, sigmas, deltas, ts, valid, T_threshold: float,
+               rgbs=None, aux=None, with_Ts: bool = False):
+    """`composite_fwd` on the card through launcher `symbol`, which takes
+    the arguments of `ingp_composite_fwd` (the K1/K2/K3 split's old K3
+    forward body does too)."""
     if sigmas.device.type != "cuda":
         raise ValueError(f"composite: unsupported device {sigmas.device}")
     dev = sigmas.device
-    for name, t in (("sigmas", sigmas), ("deltas", deltas), ("ts", ts)):
+    planes = [("sigmas", sigmas), ("deltas", deltas)] + (
+        [] if ts is None else [("ts", ts)])
+    for name, t in planes:
         build.check_cuda_tensor(name, t, (torch.float32,), 2, dev)
     build.check_cuda_tensor("valid", valid, (torch.bool,), 2, dev, align=1)
     R, S = sigmas.shape
-    for name, t in (("deltas", deltas), ("ts", ts), ("valid", valid)):
+    for name, t in planes[1:] + [("valid", valid)]:
         if t.shape != (R, S):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(R, S)}")
     if rgbs is not None:
@@ -122,9 +137,10 @@ def composite_fwd(sigmas, deltas, ts, valid, T_threshold: float, rgbs=None,
     out = {
         "ws": torch.empty((R, S), device=dev),
         "opacity": torch.empty((R,), device=dev),
-        "depth": torch.empty((R,), device=dev),
         "count": torch.empty((R,), dtype=torch.int32, device=dev),
     }
+    if ts is not None:
+        out["depth"] = torch.empty((R,), device=dev)
     if with_Ts:
         out["Ts"] = torch.empty((R, S), device=dev)
     if rgbs is not None:
@@ -134,11 +150,11 @@ def composite_fwd(sigmas, deltas, ts, valid, T_threshold: float, rgbs=None,
     if R == 0:
         return out
     with torch.cuda.device(dev):
-        build.launch("ingp_composite_fwd", build.ptr(sigmas),
+        build.launch(symbol, build.ptr(sigmas),
                      build.ptr(deltas), build.ptr(ts), build.ptr(valid),
                      build.ptr(rgbs), build.ptr(aux), C, float(T_threshold),
                      R, S, build.ptr(out["ws"]), build.ptr(out.get("Ts")),
-                     build.ptr(out["opacity"]), build.ptr(out["depth"]),
+                     build.ptr(out["opacity"]), build.ptr(out.get("depth")),
                      build.ptr(out.get("rgb")), build.ptr(out.get("aux")),
                      build.ptr(out["count"]), build.stream_of(dev))
     return out

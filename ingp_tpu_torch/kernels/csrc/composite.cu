@@ -2,20 +2,43 @@
 // in.
 //
 // Replaces ingp_tpu/ops/pallas/composite_pallas.py composite_pallas
-// (_run_fwd -> _fwd_kernel). One thread walks one ray front to back:
-// sd = valid ? sigma*dt : 0, inclusive running sum csum, transmittance
-// before the sample T = exp(-(csum - sd)), include = valid && T > thr,
-// w = include ? (1 - exp(-sd)) * T : 0 -- the include rule of
-// composite_pallas.py:35-50. It writes ws (and, when asked, Ts for the
-// test render's visibility cut), opacity, depth, rgb, the count of
-// samples with w > 0, and the weighted sums of the aux channels
+// (_run_fwd -> _fwd_kernel). Per ray, front to back: sd = valid ?
+// sigma*dt : 0, inclusive running sum csum, transmittance before the
+// sample T = exp(-(csum - sd)), include = valid && T > thr, w = include ?
+// (1 - exp(-sd)) * T : 0 -- the include rule of composite_pallas.py:35-50
+// (k3.cuh). It writes ws (and, when asked, Ts for the test render's
+// visibility cut), opacity, depth (only when ts is given), rgb, the count
+// of samples with w > 0, and the weighted sums of the aux channels
 // (normal_pred, normal_raw, semantics: (C, R, S) -> (R, C)).
 //
-// Bound on the H100: bytes. Each (ray, sample) reads sigma, dt, t,
-// valid, 3 rgb and C aux values and writes ws (and Ts); a handful of
-// flops per byte. The design reads each input once per sample in one
-// pass (the aux sums re-read ws, which the same thread has just written
-// and the L1 still holds) and keeps every running sum in registers.
+// Bound on the H100: bytes. Each (ray, sample) reads sigma, dt, valid, t,
+// 3 rgb and C aux values and writes ws (and Ts); a handful of flops per
+// byte. A thread per ray (the old form, the K1/K2/K3 split's `k3 fwd
+// full`) made 64 blocks of 128 threads for training's 8192 rays on 132
+// SMs, loaded every channel at the ray's S*4-byte stride across the warp
+// (32 sectors per warp load; the ws and Ts stores the same) and re-read
+// ws for the aux sums. Here a group of 16 lanes takes a ray (16 rays per
+// 256-thread block: 512 blocks for 8192 rays), its lanes the ray's
+// samples in segments of 16 (at S = 48, three full segments; groups of
+// 32 left half of each ray's second segment idle and ran slower at every
+// measured shape):
+//   per segment, every input of a lane's sample is loaded once and
+//     coalesced (a group reads 64 contiguous bytes of each channel), all
+//     before the walk; lane 0 sums the segment's sd front to back out of
+//     shared memory, carrying the sum from segment to segment
+//     (k3_csum_walk, the walk of K3 backward, so both decide T > thr
+//     from the same bits); then each lane makes its w and T, stores ws
+//     and Ts coalesced and adds into its partials of opacity, depth,
+//     rgb, count and the aux channels;
+//   at the end one butterfly per quantity (k3_total) gives the ray's
+//     totals. Only the summation order of opacity, depth, rgb and aux
+//     differs from the thread-per-ray body; ws, Ts and count have its
+//     bits.
+// The aux partials live in registers, kK3Aux channels per pass over the
+// ray: C <= kK3Aux takes one pass, a larger C one more pass (the walk
+// again) per kK3Aux channels. A launch without rgb and aux runs an
+// instance with their code compiled away. Any S works: one segment is
+// staged at a time.
 //
 // K3 backward (ingp_composite_bwd): replaces composite_pallas.py _run_bwd
 // (_bwd_kernel), the closed form of volumerendering.cu:222-241 plus the
@@ -40,12 +63,11 @@
 //   pass 1, per segment: every input loaded once, coalesced (a warp
 //     reads 128 contiguous bytes of each channel); dws_eff = dws +
 //     sum_c dAux_c aux_c computed once; the inclusive csum of sd in
-//     K3 forward's serial front-to-back order (one lane sums the
-//     segment's sd out of shared memory, carrying the sum from segment
-//     to segment, with the same rounding as the forward: k3_sd, k3_T),
-//     so that T > thr includes exactly the samples the forward weighted;
-//     w, T', dt (or -1 where not included), t, rgb and dws_eff kept in
-//     shared memory; the lane partials of O, D, C and sum dws_eff w;
+//     K3 forward's serial front-to-back order (k3_csum_walk, k3_sd,
+//     k3_T), so that T > thr includes exactly the samples the forward
+//     weighted; w, T', dt (or -1 where not included), t, rgb and dws_eff
+//     kept in shared memory; the lane partials of O, D, C and sum
+//     dws_eff w;
 //   the totals by __shfl_xor_sync reductions;
 //   pass 2, per segment: the prefix sums of w t, w rgb and dws_eff w by
 //     __shfl_up_sync inclusive scans carried across segments (they enter
@@ -55,21 +77,27 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "k3.cuh"
+
 namespace {
 
-// The include rule's transmittance, shared by K3 forward and backward so
-// that both decide T > thr from the same bits: sd = valid ? sigma*dt : 0
-// and its inclusive front-to-back sum csum, each product and sum rounded
-// on its own (never contracted into a fused multiply-add), and the
-// transmittance before the sample T = exp(-(csum - sd)).
-__device__ __forceinline__ float k3_sd(bool v, float sig, float dt) {
-  return v ? __fmul_rn(sig, dt) : 0.f;
-}
-__device__ __forceinline__ float k3_T(float csum, float sd) {
-  return expf(-__fsub_rn(csum, sd));
+// the butterfly total over a group of G lanes (every lane gets it)
+template <int G = 32, typename T>
+__device__ __forceinline__ T k3_total(T v) {
+#pragma unroll
+  for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-__global__ void __launch_bounds__(128)
+constexpr int kK3FwdThreads = 256;
+constexpr int kK3FwdGroup = 16;   // lanes per ray
+constexpr int kK3Aux = 16;        // aux channels a pass keeps in registers
+
+// CHANNELS: the launch composites rgb or aux channels. Without them (the
+// weights + Ts launch of render_weights) their code compiles away: half
+// the registers, and twice the speed on training's launch.
+template <bool CHANNELS>
+__global__ void __launch_bounds__(kK3FwdThreads)
     composite_fwd_kernel(const float* __restrict__ sig,
                          const float* __restrict__ dt,
                          const float* __restrict__ ts,
@@ -82,43 +110,93 @@ __global__ void __launch_bounds__(128)
                          float* __restrict__ rgb_out,
                          float* __restrict__ aux_out,
                          int* __restrict__ count) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  constexpr int G = kK3FwdGroup;
+  __shared__ float cs_block[kK3FwdThreads];
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int r = blockIdx.x * (kK3FwdThreads / G) + grp;
+  // a group past the last ray runs on without loads or stores, so that
+  // every lane of a warp reaches its __syncwarp and shuffles
+  const bool ray = r < R;
+  float* cs = cs_block + grp * G;
   const int64_t base = (int64_t)r * S;
   const int64_t plane = (int64_t)R * S;
-  float csum = 0.f, op = 0.f, dp = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-  int n = 0;
-  for (int s = 0; s < S; ++s) {
-    const int64_t i = base + s;
-    const bool v = valid[i] != 0;
-    const float sd = k3_sd(v, sig[i], dt[i]);
-    csum = __fadd_rn(csum, sd);
-    const float T = k3_T(csum, sd);
-    const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
-    ws[i] = w;
-    if (Ts) Ts[i] = T;
-    op += w;
-    dp = fmaf(w, ts[i], dp);
-    n += w > 0.f;
-    if (rgbs) {
-      c0 = fmaf(w, rgbs[i], c0);
-      c1 = fmaf(w, rgbs[plane + i], c1);
-      c2 = fmaf(w, rgbs[2 * plane + i], c2);
+  for (int c0 = 0; c0 == 0 || c0 < C; c0 += kK3Aux) {
+    const bool first = c0 == 0;   // the pass that writes ws, Ts, ...
+    const int nc = CHANNELS ? min(kK3Aux, C - c0) : 0;
+    float csum = 0.f;             // lane 0: the ray's running sum of sd
+    float op = 0.f, dp = 0.f, q0 = 0.f, q1 = 0.f, q2 = 0.f;
+    float acc[kK3Aux];
+#pragma unroll
+    for (int c = 0; c < kK3Aux; ++c) acc[c] = 0.f;
+    int n = 0;
+    for (int s0 = 0; s0 < S; s0 += G) {
+      const int s = s0 + lane;
+      const bool in = ray && s < S;
+      const int64_t i = base + s;
+      bool v = false;
+      float sd = 0.f, t = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, a[kK3Aux];
+      if (in) {
+        v = valid[i] != 0;
+        sd = k3_sd(v, sig[i], dt[i]);
+        cs[lane] = sd;
+        if (first && ts) t = ts[i];
+        if (CHANNELS && first && rgbs) {
+          r0 = rgbs[i];
+          r1 = rgbs[plane + i];
+          r2 = rgbs[2 * plane + i];
+        }
+#pragma unroll
+        for (int c = 0; c < kK3Aux; ++c)
+          if (c < nc) a[c] = aux[(c0 + c) * plane + i];
+      }
+      __syncwarp();
+      if (lane == 0) k3_csum_walk(cs, ray ? min(G, S - s0) : 0, csum);
+      __syncwarp();
+      if (in) {
+        const float T = k3_T(cs[lane], sd);
+        const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
+        if (first) {
+          ws[i] = w;
+          if (Ts) Ts[i] = T;
+          op += w;
+          dp = fmaf(w, t, dp);
+          n += w > 0.f;
+          q0 = fmaf(w, r0, q0);
+          q1 = fmaf(w, r1, q1);
+          q2 = fmaf(w, r2, q2);
+        }
+#pragma unroll
+        for (int c = 0; c < kK3Aux; ++c)
+          if (c < nc) acc[c] = fmaf(w, a[c], acc[c]);
+      }
     }
-  }
-  opacity[r] = op;
-  depth[r] = dp;
-  count[r] = n;
-  if (rgbs) {
-    rgb_out[3 * r] = c0;
-    rgb_out[3 * r + 1] = c1;
-    rgb_out[3 * r + 2] = c2;
-  }
-  for (int c = 0; c < C; ++c) {
-    const float* a = aux + c * plane + base;
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc = fmaf(ws[base + s], a[s], acc);
-    aux_out[(int64_t)r * C + c] = acc;
+    if (first) {
+      op = k3_total<G>(op);
+      dp = k3_total<G>(dp);
+      n = k3_total<G>(n);
+      if (CHANNELS) {
+        q0 = k3_total<G>(q0);
+        q1 = k3_total<G>(q1);
+        q2 = k3_total<G>(q2);
+      }
+      if (lane == 0 && ray) {
+        opacity[r] = op;
+        if (depth) depth[r] = dp;
+        count[r] = n;
+        if (CHANNELS && rgb_out) {
+          rgb_out[3 * r] = q0;
+          rgb_out[3 * r + 1] = q1;
+          rgb_out[3 * r + 2] = q2;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kK3Aux; ++c) {
+      if (c < nc) {
+        const float tot = k3_total<G>(acc[c]);
+        if (lane == 0 && ray) aux_out[(int64_t)r * C + c0 + c] = tot;
+      }
+    }
   }
 }
 
@@ -133,12 +211,6 @@ __device__ __forceinline__ float k3_scan(float v, int lane) {
     const float o = __shfl_up_sync(0xffffffffu, v, d);
     if (lane >= d) v += o;
   }
-  return v;
-}
-
-__device__ __forceinline__ float k3_total(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -188,14 +260,8 @@ __global__ void __launch_bounds__(kK3Warps * 32)
       sm[K3_CSUM * S + s] = sd;
     }
     __syncwarp();
-    if (lane == 0) {   // K3 forward's serial order
-      const int n = min(32, S - s0);
-      float* cs = sm + K3_CSUM * S + s0;
-      for (int j = 0; j < n; ++j) {
-        csum = __fadd_rn(csum, cs[j]);
-        cs[j] = csum;
-      }
-    }
+    if (lane == 0)   // K3 forward's serial order
+      k3_csum_walk(sm + K3_CSUM * S + s0, min(32, S - s0), csum);
     __syncwarp();
     if (in) {
       const float T = k3_T(sm[K3_CSUM * S + s], sd);
@@ -305,10 +371,11 @@ extern "C" int ingp_composite_bwd(const void* sigmas, const void* deltas,
   return (int)cudaGetLastError();
 }
 
-// sigmas, deltas, ts (R, S) f32; valid (R, S) bool (1 byte); rgbs
-// (3, R, S) f32 or null; aux (C, R, S) f32 or null (C = 0); outputs ws
-// (R, S), Ts (R, S) or null, opacity (R,), depth (R,), rgb (R, 3) or
-// null, aux_out (R, C), count (R,) int32. Returns cudaGetLastError().
+// sigmas, deltas (R, S) f32; ts (R, S) f32 or null (then depth is null
+// and not written); valid (R, S) bool (1 byte); rgbs (3, R, S) f32 or
+// null; aux (C, R, S) f32 or null (C = 0); outputs ws (R, S), Ts (R, S)
+// or null, opacity (R,), depth (R,) or null, rgb (R, 3) or null, aux_out
+// (R, C), count (R,) int32. Returns cudaGetLastError().
 extern "C" int ingp_composite_fwd(const void* sigmas, const void* deltas,
                                   const void* ts, const void* valid,
                                   const void* rgbs, const void* aux, int C,
@@ -317,9 +384,10 @@ extern "C" int ingp_composite_fwd(const void* sigmas, const void* deltas,
                                   void* rgb_out, void* aux_out, void* count,
                                   void* stream) {
   if (R == 0) return 0;
-  const int threads = 128;
-  composite_fwd_kernel<<<(R + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
+  constexpr int rays = kK3FwdThreads / kK3FwdGroup;
+  const auto kernel = (rgbs || C > 0) ? composite_fwd_kernel<true>
+                                      : composite_fwd_kernel<false>;
+  kernel<<<(R + rays - 1) / rays, kK3FwdThreads, 0, (cudaStream_t)stream>>>(
       (const float*)sigmas, (const float*)deltas, (const float*)ts,
       (const unsigned char*)valid, (const float*)rgbs, (const float*)aux, C,
       thr, R, S, (float*)ws, (float*)Ts, (float*)opacity, (float*)depth,

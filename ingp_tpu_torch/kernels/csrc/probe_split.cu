@@ -76,9 +76,16 @@
 //   warp-per-ray form replaced it: a thread per ray walking its S
 //   samples twice), K3B_FULL only, unchanged.
 //
+//   K3 forward (composite_fwd_kernel of composite.cu before the
+//   group-per-ray form replaced it: a thread per ray, loads and stores at
+//   the ray's S*4-byte stride across the warp, ws re-read for the aux
+//   sums), unchanged: `k3 fwd full`. It reads ts (the callers that have
+//   none pass a plane of zeros, as the step did before).
+//
 // Bound on the H100: bytes, as rayreduce.cu and brickreduce.cu. Nothing
 // here ships: the wrapper is ingp_tpu_torch/probes/kernel_split.py.
 #include "trilerp.cuh"
+#include "k3.cuh"
 
 namespace {
 
@@ -613,6 +620,59 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// composite_fwd_kernel before the group-per-ray form (composite.cu),
+// unchanged: one thread walks one ray.
+__global__ void __launch_bounds__(128)
+    split_k3f_kernel(const float* __restrict__ sig,
+                     const float* __restrict__ dt,
+                     const float* __restrict__ ts,
+                     const unsigned char* __restrict__ valid,
+                     const float* __restrict__ rgbs,
+                     const float* __restrict__ aux, int C, float thr, int R,
+                     int S, float* __restrict__ ws, float* __restrict__ Ts,
+                     float* __restrict__ opacity, float* __restrict__ depth,
+                     float* __restrict__ rgb_out,
+                     float* __restrict__ aux_out, int* __restrict__ count) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int64_t base = (int64_t)r * S;
+  const int64_t plane = (int64_t)R * S;
+  float csum = 0.f, op = 0.f, dp = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+  int n = 0;
+  for (int s = 0; s < S; ++s) {
+    const int64_t i = base + s;
+    const bool v = valid[i] != 0;
+    const float sd = k3_sd(v, sig[i], dt[i]);
+    csum = __fadd_rn(csum, sd);
+    const float T = k3_T(csum, sd);
+    const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
+    ws[i] = w;
+    if (Ts) Ts[i] = T;
+    op += w;
+    dp = fmaf(w, ts[i], dp);
+    n += w > 0.f;
+    if (rgbs) {
+      c0 = fmaf(w, rgbs[i], c0);
+      c1 = fmaf(w, rgbs[plane + i], c1);
+      c2 = fmaf(w, rgbs[2 * plane + i], c2);
+    }
+  }
+  opacity[r] = op;
+  depth[r] = dp;
+  count[r] = n;
+  if (rgbs) {
+    rgb_out[3 * r] = c0;
+    rgb_out[3 * r + 1] = c1;
+    rgb_out[3 * r + 2] = c2;
+  }
+  for (int c = 0; c < C; ++c) {
+    const float* a = aux + c * plane + base;
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc = fmaf(ws[base + s], a[s], acc);
+    aux_out[(int64_t)r * C + c] = acc;
+  }
+}
+
 }  // namespace
 
 // table (n_rows, 256) bf16; urows (B, U) int32; uid (B, K) int32;
@@ -743,5 +803,24 @@ extern "C" int ingp_probe_split_k3b(const void* sigmas, const void* deltas,
       thr, R, S, (const float*)dws, (const float*)dO, (const float*)dD,
       (const float*)dC, (const float*)dAux, (float*)dsig, (float*)drgb,
       (float*)daux);
+  return (int)cudaGetLastError();
+}
+
+// The arguments of ingp_composite_fwd (composite.cu), ts and depth not
+// null. Returns cudaGetLastError().
+extern "C" int ingp_probe_split_k3f(const void* sigmas, const void* deltas,
+                                    const void* ts, const void* valid,
+                                    const void* rgbs, const void* aux,
+                                    int C, float thr, int R, int S,
+                                    void* ws, void* Ts, void* opacity,
+                                    void* depth, void* rgb_out,
+                                    void* aux_out, void* count,
+                                    void* stream) {
+  if (R == 0) return 0;
+  split_k3f_kernel<<<(R + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const float*)sigmas, (const float*)deltas, (const float*)ts,
+      (const unsigned char*)valid, (const float*)rgbs, (const float*)aux, C,
+      thr, R, S, (float*)ws, (float*)Ts, (float*)opacity, (float*)depth,
+      (float*)rgb_out, (float*)aux_out, (int*)count);
   return (int)cudaGetLastError();
 }

@@ -16,8 +16,7 @@ from ..kernels.composite import composite
 def render_weights(sigmas, deltas, valid, T_threshold):
     """(ws (R, S), Ts (R, S)): weights with early stop, and the
     transmittance before each sample."""
-    out = composite(sigmas, deltas, torch.zeros_like(sigmas), valid,
-                    T_threshold, with_Ts=True)
+    out = composite(sigmas, deltas, None, valid, T_threshold, with_Ts=True)
     return out["ws"], out["Ts"]
 
 

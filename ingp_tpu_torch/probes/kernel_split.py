@@ -56,6 +56,10 @@ flags of one source, kernels/csrc/probe_split.cu:
   K3 bwd    full (the body the warp-per-ray kernel replaced: a thread per
             ray walking its samples twice) and shipping
             (`kernels.composite` `composite_bwd`).
+  K3 fwd    full (the body the group-per-ray kernel replaced: a thread
+            per ray, loads and stores at the ray's S*4-byte stride, ws
+            re-read for the aux sums) and shipping (`kernels.composite`
+            `composite_fwd`), with rgb and 13 aux channels.
 
 The TPU probe's `factored-E` (point-domain weights expanded to lanes by
 an MXU dot) has no counterpart: the CUDA kernel builds each corner's
@@ -77,8 +81,8 @@ accepts. The K2 split runs at training's two K2 shapes: rows
 without, drawn over a table of the bench's density shape (207,295 x 256
 bf16), lf over all 8 brick cells; the K2 bwd split at training's
 (4, 196,608) with dj over the density shape and without it over the rgb
-shape (715,199 rows); the K3 bwd split at training's (8192, 48) with 13
-aux channels.
+shape (715,199 rows); the K3 bwd and fwd splits at training's (8192,
+48) with 13 aux channels.
 
 Run on the card: python -m ingp_tpu_torch.probes.kernel_split
 (--device cpu runs the plain versions only).
@@ -123,7 +127,7 @@ K2B_GROUPS = (("Lw 4, jac", 4, 196_608, True, K2_ROWS),
 K2B_MODES = {"full": 0, "shipping": None, "no-atomics": 1,
              "contiguous-reads": 2, "vector-atomics": 3}
 K3B_SHAPE = (8192, 48, 13)      # (rays, samples, aux channels)
-K3B_MODES = ("full", "shipping")
+K3_MODES = ("full", "shipping")    # the K3 bwd and fwd splits
 K3_THRESHOLD = 1e-4             # training's T_threshold
 _CORNERS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
 
@@ -529,7 +533,7 @@ def split_k3b(mode: str, sigmas, deltas, ts, valid, T_threshold, rgbs, aux,
     """K3's backward before the warp-per-ray kernel (`full`), or the
     shipping kernel (`composite.composite_bwd`), with `composite_bwd`'s
     arguments and outputs. CPU tensors run `composite_bwd_plain`."""
-    if mode not in K3B_MODES:
+    if mode not in K3_MODES:
         raise KeyError(mode)
     args = (sigmas, deltas, ts, valid, T_threshold, rgbs, aux, dws, dO, dD,
             dC, dAux)
@@ -560,6 +564,37 @@ def split_k3b(mode: str, sigmas, deltas, ts, valid, T_threshold, rgbs, aux,
                                            drgb, daux)),
             build.stream_of(dev))
     return dsig, drgb, daux
+
+
+def split_k3f(mode: str, sigmas, deltas, ts, valid, T_threshold,
+              rgbs=None, aux=None, with_Ts: bool = False):
+    """K3's forward before the group-per-ray kernel (`full`, which reads
+    ts: pass a plane of zeros where there is none), or the shipping
+    kernel (`composite.composite_fwd`), with `composite_fwd`'s arguments
+    and outputs. CPU tensors run `composite_plain`."""
+    if mode not in K3_MODES:
+        raise KeyError(mode)
+    args = (sigmas, deltas, ts, valid, T_threshold, rgbs, aux, with_Ts)
+    if sigmas.device.type == "cpu":
+        return composite.composite_plain(*args)
+    if mode == "shipping":
+        return composite.composite_fwd(*args)
+    if ts is None:
+        raise ValueError("split_k3f: the old K3 forward body reads ts")
+    return composite.launch_fwd("ingp_probe_split_k3f", *args)
+
+
+def k3f_bytes(inp):
+    """(bytes, f32 operations) of K3 fwd: sigma, dt, valid, t (where
+    given), 3 rgb and C aux read and ws (and Ts) written per sample;
+    opacity, depth (with t), count, rgb and aux written per ray."""
+    R, S = inp["sigmas"].shape
+    c3 = 0 if inp["rgbs"] is None else 3
+    C = 0 if inp["aux"] is None else inp["aux"].shape[0]
+    t = inp["ts"] is not None
+    nbytes = R * S * (9 + 4 * (t + c3 + C + 1 + inp["with_Ts"])) \
+        + R * 4 * (2 + t + c3 + C)
+    return nbytes, R * S * (12 + 2 * (t + c3 + C))
 
 
 def make_k3b_inputs(gen, device, R: int, S: int, C: int):
@@ -710,7 +745,8 @@ def cases(device, seed: int = 0, groups=GROUPS, n_rows: int = N_ROWS,
     """One `common.Case` per (direction, mode, uid input), each over all
     groups (its time is the sum over the groups, as the TPU probe's),
     then one per (K2 mode, K2 group), per (K2 bwd mode, K2 bwd group)
-    and per K3 bwd mode (none when k3b_shape is None)."""
+    and per K3 bwd and K3 fwd mode at k3b_shape (none when it is
+    None)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     table = torch.randn((n_rows, W), generator=gen, device=device
                         ).to(torch.bfloat16)
@@ -746,7 +782,11 @@ def cases(device, seed: int = 0, groups=GROUPS, n_rows: int = N_ROWS,
                 (list(K2B_MODES) if k2b_modes is None else k2b_modes)]
     if k3b_shape is not None:
         inp = make_k3b_inputs(gen, device, *k3b_shape)
-        out += [_k3b_case(mode, inp) for mode in K3B_MODES]
+        out += [_k3b_case(mode, inp) for mode in K3_MODES]
+        fwd = {k: inp[k] for k in ("sigmas", "deltas", "ts", "valid",
+                                   "T_threshold", "rgbs", "aux")}
+        out += [_k3f_case(mode, {**fwd, "with_Ts": False})
+                for mode in K3_MODES]
     return out
 
 
@@ -784,6 +824,21 @@ def _k3b_case(mode, inp):
         flops, "bwd",
         "ingp_composite_bwd" if mode == "shipping"
         else "ingp_probe_split_k3b")
+
+
+def _by_key(out: dict) -> tuple:
+    return tuple(out[k] for k in sorted(out))
+
+
+def _k3f_case(mode, inp):
+    nbytes, flops = k3f_bytes(inp)
+    R, S = inp["sigmas"].shape
+    return common.Case(
+        "kernel_split", f"k3 fwd {mode}, ({R}, {S}) C {inp['aux'].shape[0]}",
+        lambda: _by_key(split_k3f(mode, **inp)),
+        lambda: _by_key(composite.composite_plain(**inp)), None, "", nbytes,
+        flops, "fwd", "ingp_composite_fwd" if mode == "shipping"
+        else "ingp_probe_split_k3f")
 
 
 def _k2_case(mode, group, with_jac, table, inp):

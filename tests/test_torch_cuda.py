@@ -579,3 +579,67 @@ def test_k3_bwd_refuses_long_rays(cuda):
         k3.composite_bwd(*(t.to(cuda) for t in base), 1e-4, rgbs.to(cuda),
                          aux.to(cuda), *(t.to(cuda) for t in cts))
     assert build.LAUNCHES["ingp_composite_bwd"] == n0
+
+
+# The redesigned K3 forward (a group of 16 lanes per ray, segments of 16
+# samples, the same serial csum as the thread-per-ray body it replaced).
+
+@pytest.mark.parametrize("C", [0, 13, 20])
+@pytest.mark.parametrize("S", [1, 33, 48, 100, 1000])
+def test_k3_fwd_segments_match_plain(cuda, S, C):
+    """Rays of one or more 16-sample segments, S = 1000 above BWD_MAX_S
+    (the forward stages one segment at a time), C = 20 beyond the 16 aux
+    channels a pass keeps in registers (a second pass): one launch per
+    call, count equal to the plain version's and every other output
+    within 1e-5 of its largest value; ws, Ts and count bitwise equal to
+    the old body (the split's `k3 fwd full`); without ts, no depth and
+    the same ws, Ts and count."""
+    from ingp_tpu_torch.probes import kernel_split as ps
+    rng = np.random.default_rng(S + C + 40)
+    (sig, dt, ts, valid), rgbs, aux, _ = _k3_bwd_case(rng, 999, S, C)
+    aux = aux if C else None
+    ref = k3.composite_plain(sig, dt, ts, valid, 1e-4, rgbs, aux, True)
+    dev = [t.to(cuda) for t in (sig, dt, ts, valid)]
+    rgbs_d = rgbs.to(cuda)
+    aux_d = None if aux is None else aux.to(cuda)
+    n0 = build.LAUNCHES["ingp_composite_fwd"]
+    out = k3.composite_fwd(*dev, 1e-4, rgbs_d, aux_d, True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ingp_composite_fwd"] == n0 + 1
+    assert set(out) == set(ref)
+    assert torch.equal(out["count"].cpu(), ref["count"])
+    for k in set(ref) - {"count"}:
+        _close(out[k], ref[k])
+    old = ps.split_k3f("full", *dev, 1e-4, rgbs_d, aux_d, True)
+    no_ts = k3.composite_fwd(dev[0], dev[1], None, dev[3], 1e-4,
+                             with_Ts=True)
+    assert "depth" not in no_ts
+    for k in ("ws", "Ts", "count"):
+        assert torch.equal(out[k], old[k]), k
+        assert torch.equal(no_ts[k], out[k]), k
+
+
+def test_k3_fwd_matches_old_body(cuda):
+    """At training's (8192, 48) with 13 aux channels and with Ts only
+    (no ts, no rgb: the old body is handed a zero ts plane, as the step
+    gave it before): ws, Ts and count bitwise equal to the thread-per-ray
+    body the kernel replaced (the split's `k3 fwd full`), opacity, depth,
+    rgb and aux within 1e-5 of its largest value; one launch per call."""
+    from ingp_tpu_torch.probes import kernel_split as ps
+    rng = np.random.default_rng(17)
+    (sig, dt, ts, valid), rgbs, aux, _ = _k3_bwd_case(rng, 8192, 48, 13)
+    sig, dt, ts, valid, rgbs, aux = (t.to(cuda) for t in (
+        sig, dt, ts, valid, rgbs, aux))
+    for new_args, old_args in (
+            ((sig, dt, ts, valid, 1e-4, rgbs, aux, True),) * 2,
+            ((sig, dt, None, valid, 1e-4, None, None, True),
+             (sig, dt, torch.zeros_like(ts), valid, 1e-4, None, None,
+              True))):
+        n0 = build.LAUNCHES["ingp_composite_fwd"]
+        new = k3.composite_fwd(*new_args)
+        assert build.LAUNCHES["ingp_composite_fwd"] == n0 + 1
+        old = ps.split_k3f("full", *old_args)
+        for k in ("ws", "Ts", "count"):
+            assert torch.equal(new[k], old[k]), k
+        for k in set(new) - {"ws", "Ts", "count"}:
+            _close(new[k].cpu(), old[k].cpu())

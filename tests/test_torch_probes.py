@@ -608,6 +608,6 @@ def test_probe_cases_run_on_the_cpu(capsys):
             assert torch.equal(a, b)
     assert common.run(cases, cpu, 1) == []
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(cases) == 24 + 9 + 10 + 2 + 1 + 3 + 8
+    assert len(lines) == len(cases) == 24 + 9 + 10 + 2 + 2 + 1 + 3 + 8
     assert all("plain version on the CPU" in s for s in lines)
     assert sum(build.LAUNCHES.values()) == n0
