@@ -71,7 +71,26 @@ Phases, each line flushed and stamped with elapsed seconds:
    4-byte-offset cases of the card tests, bitwise. Every probe kernel
    must have been launched by the timed runs (the checks' launches are
    left out of the counts); none runs on the training path;
-9. the kernels JSON line (`launches`: the training window's count for
+9. cli: `ingp_tpu_torch.train.main` on configs/synthetic_smoke.txt at
+   its own 500 steps of 2048 rays (the hash encoder, f32 tables, the
+   sparsity prior), in a temporary working directory, with the launch
+   counts set to 0 before it: the step time, the losses of the first and
+   last 50 steps (finite and falling), the test PSNR (at most 1 dB under
+   the JAX CLI's on the same config, JAX_CLI_PSNR) and SSIM; the
+   checkpoints `last` and `last_slim` must exist, and `--ckpt_load last
+   --val_only` must give the same PSNR and SSIM to 1e-6; then the hash
+   encode, its jacobian and its table gradient on the card against the
+   CPU, within 1e-5 of the largest value;
+10. quality: the port's quality gate (`ingp_tpu_torch.quality_synthetic`
+   at its defaults: 600 steps of 8192 rays over 100 views at 256 px,
+   a stream of two chunks, the sparsity prior), with the launch counts
+   set to 0 before it, and its RESULT line. The first step's K2 forward
+   and backward launches of the sparsity prior, at (16, 16384), and K1
+   forward and backward launches of the second stream chunk are held
+   against their plain versions on the CPU, with times and bounds, as in
+   phase 6; then a miss of the bar (novel PSNR >= 26.0, SSIM >= 0.865)
+   fails the run;
+11. the kernels JSON line (`launches`: the training window's count for
    the six package kernels, the probes phase's for the probe kernels;
    `launches_per_train_step` for all), then the result line.
 
@@ -322,6 +341,20 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
+def table_namer(cfg):
+    """table(t, jac) -> "<density|rgb> table, <jac|no jac>", the variant
+    name of a K1/K2 call on table t (told apart by its row count)."""
+    tables = {cfg.density_brick_cfg.total_bricks: "density",
+              cfg.rgb_brick_cfg.total_bricks: "rgb"}
+    if len(tables) != 2:
+        raise AssertionError("the tables' row counts do not tell them apart")
+
+    def table(t, jac):
+        name = tables.get(t.shape[0], f"{t.shape[0]}-row")
+        return f"{name} table, {'jac' if jac else 'no jac'}"
+    return table
+
+
 def record_kernels(cfg, names, keep=True):
     """Recorders on the wrappers of the kernels `names`, keyed by
     variant: the table a K1/K2 call reads (by its row count) and whether
@@ -331,14 +364,7 @@ def record_kernels(cfg, names, keep=True):
     from ingp_tpu_torch.kernels import brickreduce as k2
     from ingp_tpu_torch.kernels import composite as k3
     from ingp_tpu_torch.kernels import rayreduce as k1
-    tables = {cfg.density_brick_cfg.total_bricks: "density",
-              cfg.rgb_brick_cfg.total_bricks: "rgb"}
-    if len(tables) != 2:
-        raise AssertionError("the tables' row counts do not tell them apart")
-
-    def table(t, jac):
-        name = tables.get(t.shape[0], f"{t.shape[0]}-row")
-        return f"{name} table, {'jac' if jac else 'no jac'}"
+    table = table_namer(cfg)
 
     def k3_fwd(a):
         v = "rgb and aux" if a["rgbs"] is not None else "weights"
@@ -728,12 +754,26 @@ def check_k3(a, tag, ref_dev):
         raise AssertionError(f"composite [{tag}]: sample counts differ "
                              f"from plain")
     nbytes, flops = k3f_bytes(a)
-    return compare(
+    res = compare(
         "composite", tag, lambda: k3.composite_fwd(**a),
         lambda dev: k3.composite_plain(**to_dev(a, dev)),
         lambda o: ([v.reshape(R, -1) for k, v in sorted(o.items())
                     if k != "count"], []),
         nbytes, flops, ref_dev, 1e-7)
+    # how far each side lies from the plain version in float64 on the same
+    # inputs (reported only: near the T > thr cut float64 may include
+    # other samples)
+    exact = k3.composite_plain(**{
+        k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+        for k, v in to_dev(a, "cpu").items()})
+    off = {who: max(float((o[k].double() - exact[k]).abs().max())
+                    for k in exact if k != "count")
+           for who, o in (("kernel", to_dev(k3.composite_fwd(**a), "cpu")),
+                          ("plain", k3.composite_plain(**to_dev(a, "cpu"))))}
+    log(f"kernel composite [{tag}]: from the plain version in float64: "
+        f"kernel {off['kernel']:.3e}, plain version in float32 "
+        f"{off['plain']:.3e}")
+    return res
 
 
 def _zero_grad(a, dev):
@@ -1457,6 +1497,303 @@ def phase_train_reference():
         f"of their largest values")
 
 
+# the JAX CLI's test PSNR on configs/synthetic_smoke.txt (`python -m
+# ingp_tpu.train --config configs/synthetic_smoke.txt`, 500 steps, JAX on
+# the CPU; PERF.md): the port's CLI run may land at most CLI_PSNR_SLACK dB
+# below it
+JAX_CLI_PSNR = 21.097
+CLI_PSNR_SLACK = 1.0
+CLI_CONFIG = "configs/synthetic_smoke.txt"
+
+
+class StepLog:
+    """While active, records the loss and the host clock after every
+    `NeRFSystem.training_step`."""
+
+    def __enter__(self):
+        from ingp_tpu_torch.training.trainer import NeRFSystem
+        self.cls, self.fn = NeRFSystem, NeRFSystem.training_step
+        self.losses, self.times = [], []
+        log_ = self
+
+        def step(system, batch):
+            aux = log_.fn(system, batch)
+            log_.losses.append(aux["loss"])
+            log_.times.append(time.time())
+            return aux
+        NeRFSystem.training_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.training_step = self.fn
+
+    def step_ms(self) -> float:
+        """Median host milliseconds between consecutive steps."""
+        import numpy as np
+        return float(np.median(np.diff(self.times))) * 1e3
+
+
+def check_falling(losses, n, what):
+    """Finite losses whose mean over the last n steps is below that over
+    the first n."""
+    import numpy as np
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: non-finite training loss")
+    first, last = np.mean(losses[:n]), np.mean(losses[-n:])
+    log(f"{what}: loss mean of the first {n} steps {first:.6f}, of the "
+        f"last {n} {last:.6f}")
+    if not last < first:
+        raise AssertionError(f"{what}: the training loss did not fall")
+
+
+def check_hash_encode(cfg, table):
+    """The hash encode with its jacobian, and the table gradient of a
+    random cotangent of both, on the card against the same calls on the
+    CPU: within 1e-5 of the largest |CPU value|. table: (total_rows, F)
+    f32 on the CPU."""
+    import torch
+    from ingp_tpu_torch.ops.hashgrid import hashgrid_encode_grad
+    gen = torch.Generator().manual_seed(0)
+    n = 65536
+    # points in the cube and up to 1% outside it (the corner clamp)
+    x = torch.rand((3, n), generator=gen) * 1.02 - 0.01
+    L, F = cfg.n_levels, cfg.n_features
+    cf = torch.randn((n, L * F), generator=gen)
+    cj = torch.randn((3, n, L * F), generator=gen)
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        t = table.to(dev).requires_grad_()
+        f, j = hashgrid_encode_grad(cfg, t, x.to(dev), x_cm=True)
+        ((f * cf.to(dev)).sum() + (j * cj.to(dev)).sum()).backward()
+        outs[dev] = [v.detach().cpu() for v in (f, j, t.grad)]
+    worst = {}
+    for name, a, b in zip(("feats", "jac", "table grad"), outs[DEVICE],
+                          outs["cpu"]):
+        err, scale = max_err([a], [b])
+        worst[name] = err / scale
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"hash encode {name}: card vs cpu {err} > "
+                                 f"1e-5 of {scale}")
+    log(f"cli: hash encode of {n} points, {L} levels x {F} features "
+        f"({sum(cfg.hashed)} hashed), card vs cpu: "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} "
+        f"of the largest values")
+
+
+def phase_cli():
+    """`ingp_tpu_torch.train.main` on configs/synthetic_smoke.txt at its
+    own 500 steps of 2048 rays (the hash encoder, f32, the sparsity
+    prior), in a temporary working directory: the step time, the
+    losses (finite and falling), the test PSNR (at most CLI_PSNR_SLACK
+    dB under JAX_CLI_PSNR) and SSIM, the checkpoints `last` and
+    `last_slim`, a `--ckpt_load last --val_only` run that must give the
+    same metrics to 1e-6, and the hash encode on the card against the
+    CPU. Returns the launch counts of the training run."""
+    import os
+    import tempfile
+    import torch
+    from ingp_tpu_torch import train as train_cli
+    from ingp_tpu_torch.training.config import get_opts
+    from ingp_tpu_torch.training.trainer import model_config_from_hparams
+    from ingp_tpu_torch.utils.ckpt import load_ckpt
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          CLI_CONFIG)
+    argv = ["--config", config]
+    h = get_opts(argv)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ingp_cli_") as tmp:
+        os.chdir(tmp)
+        try:
+            t = time.time()
+            clear_counts()
+            with StepLog() as steps:
+                metrics = train_cli.main(argv)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            wall = time.time() - t
+            ckpt_dir = os.path.join(tmp, "ckpts", h.dataset_name, h.exp_name)
+            for name in ("last", "last_slim"):
+                if not os.path.isfile(os.path.join(ckpt_dir, name)):
+                    raise AssertionError(f"cli: no checkpoint {name}")
+            last = os.path.join(ckpt_dir, "last")
+            again = train_cli.main(argv + ["--ckpt_load", last,
+                                           "--val_only"])
+            table = load_ckpt(last)["params"]["model"]["density_table"]
+        finally:
+            os.chdir(cwd)
+    n = len(steps.losses)
+    log(f"cli: {CLI_CONFIG}, {n} steps x {h.batch_size} rays, encoder "
+        f"{h.encoder}, in {wall:.2f} s with validation and checkpoints; "
+        f"{steps.step_ms():.2f} ms/step (median host time between steps); "
+        f"launches {launches}")
+    check_launched({k: launches[k] for k in ("composite", "composite_bwd")},
+                   "the cli run")
+    check_falling(steps.losses, 50, "cli")
+    log(f"cli: test/psnr {metrics['psnr']:.4f} test/ssim "
+        f"{metrics['ssim']:.4f} (JAX's CLI on the CPU: psnr {JAX_CLI_PSNR}); "
+        f"--ckpt_load last --val_only: psnr {again['psnr']:.4f} ssim "
+        f"{again['ssim']:.4f}")
+    if not metrics["psnr"] >= JAX_CLI_PSNR - CLI_PSNR_SLACK:
+        raise AssertionError(f"cli: test psnr {metrics['psnr']} more than "
+                             f"{CLI_PSNR_SLACK} dB under {JAX_CLI_PSNR}")
+    for k in ("psnr", "ssim"):
+        if not abs(again[k] - metrics[k]) <= 1e-6:
+            raise AssertionError(f"cli: the reloaded checkpoint gives {k} "
+                                 f"{again[k]}, the run {metrics[k]}")
+    check_hash_encode(model_config_from_hparams(h).density_grid_cfg,
+                      table.T.contiguous())
+    return launches
+
+
+class ChunkIndex:
+    """While active, `index` is the stream chunk (0, 1, ...) that the
+    stream encoder is reducing, -1 outside an encoder call."""
+
+    def __enter__(self):
+        from ingp_tpu_torch.ops import streambrick as sb
+        self.sb, self.stream, self.chunk = (sb, sb._stream,
+                                            sb._encode_chunk_stream)
+        self.index = -1
+
+        def stream(*a, **k):
+            self.index = -1
+            try:
+                return self.stream(*a, **k)
+            finally:
+                self.index = -1
+
+        def chunk(*a, **k):
+            self.index += 1
+            return self.chunk(*a, **k)
+        sb._stream, sb._encode_chunk_stream = stream, chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.sb._stream, self.sb._encode_chunk_stream = (self.stream,
+                                                         self.chunk)
+
+
+class PriorFlag:
+    """While active, `on` is true inside the trainer's sparsity-prior
+    density call (`ngp_sigma`)."""
+
+    def __enter__(self):
+        from ingp_tpu_torch.training import trainer
+        self.mod, self.fn, self.on = trainer, trainer.ngp_sigma, False
+
+        def sigma(*a, **k):
+            self.on = True
+            try:
+                return self.fn(*a, **k)
+            finally:
+                self.on = False
+        trainer.ngp_sigma = sigma
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ngp_sigma = self.fn
+
+
+def record_quality(cfg, chunks, prior):
+    """Recorders of the gate's new launches: K2 forward and backward of
+    the sparsity prior, and K1 forward and backward of the second stream
+    chunk (the backward ones told apart by the row ids they share with
+    their forward launch)."""
+    from ingp_tpu_torch.kernels import brickreduce as k2
+    from ingp_tpu_torch.kernels import rayreduce as k1
+    table = table_namer(cfg)
+    ids = {"k1": set(), "k2": set()}
+
+    def k1_fwd(a):
+        if chunks.index != 1:
+            return None
+        ids["k1"].add(a["uid"].data_ptr())
+        return f"{table(a['table'], a['with_jac'])}, chunk 2"
+
+    def k2_fwd(a):
+        if not prior.on:
+            return None
+        ids["k2"].add(a["rows"].data_ptr())
+        return f"{table(a['table'], a['with_jac'])}, sparsity prior"
+
+    def k1_bwd(a):
+        if a["uid"].data_ptr() not in ids["k1"]:
+            return None
+        return f"{table(a['grad'], a['djac'] is not None)}, chunk 2"
+
+    def k2_bwd(a):
+        if a["rows"].data_ptr() not in ids["k2"]:
+            return None
+        return f"{table(a['grad'], a['djac'] is not None)}, sparsity prior"
+
+    return {"fused_ray_reduce": Recorder(k1, "fused_ray_reduce", k1_fwd),
+            "brick_reduce": Recorder(k2, "brick_reduce", k2_fwd),
+            "fused_ray_reduce_bwd": Recorder(k1, "fused_ray_reduce_bwd",
+                                             k1_bwd),
+            "brick_reduce_bwd": Recorder(k2, "brick_reduce_bwd", k2_bwd)}
+
+
+def phase_quality():
+    """The port's quality gate (`ingp_tpu_torch.quality_synthetic` at its
+    defaults: 600 steps of 8192 rays, two stream chunks, the sparsity
+    prior) with the launch counts set to 0 before it; a miss of its bar
+    fails the run. The first step's K2 forward and backward launches of
+    the prior and K1 forward and backward launches of the second stream
+    chunk are held against their plain versions on the CPU, with times
+    and bounds, as phase "train" does. Returns ({kernel: {variant:
+    numbers}}, launch counts)."""
+    import torch
+    from ingp_tpu_torch import quality_synthetic as gate
+    from ingp_tpu_torch.training.trainer import model_config_from_hparams
+    cfg = model_config_from_hparams(gate.gate_hparams(
+        gate.build_parser().parse_args([])))
+    recs = {}
+
+    def on_step(step, aux):
+        if step == 0:
+            for r in recs.values():
+                r.restore()
+            prior_ctx.__exit__()
+            chunk_ctx.__exit__()
+
+    t = time.time()
+    clear_counts()
+    chunk_ctx, prior_ctx = ChunkIndex(), PriorFlag()
+    recs = record_quality(cfg, chunk_ctx.__enter__(), prior_ctx.__enter__())
+    try:
+        metrics = gate.run([], device=DEVICE, on_step=on_step)
+    finally:
+        for r in recs.values():
+            r.restore()
+        prior_ctx.__exit__()
+        chunk_ctx.__exit__()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"quality: {len(metrics['losses'])} steps in "
+        f"{metrics['train_s']:.2f} s ({metrics['rays_per_s']:.1f} training "
+        f"rays/s incl. host), whole phase {time.time() - t:.2f} s; launches "
+        f"{ {k: n for k, n in launches.items() if k in KERNELS} }")
+    check_launched({k: launches[k] for k in KERNELS}, "the quality gate")
+    check_falling(metrics["losses"], 50, "quality")
+    checks = {}
+    with torch.no_grad():
+        for name, r in recs.items():
+            if not r.calls:
+                raise AssertionError(f"quality: no {name} launch recorded")
+            checks[name] = {f"quality, {tag}":
+                            CHECKS[name](a, f"quality step 0, {tag}")
+                            for tag, (a, _) in r.calls.items()}
+    del recs
+    if not gate.passes(metrics):
+        raise AssertionError(f"quality gate missed: psnr {metrics['psnr']} "
+                             f"(bar {gate.PSNR_BAR}), ssim "
+                             f"{metrics['ssim']} (bar {gate.SSIM_BAR})")
+    log(f"quality: novel-view psnr {metrics['psnr']:.4f} >= "
+        f"{gate.PSNR_BAR}, ssim {metrics['ssim']:.4f} >= {gate.SSIM_BAR}")
+    return checks, launches
+
+
 def phase_probes():
     """Every variant of each probe kernel at the probe's full shapes,
     against its plain version on the card (`probes.common.measure`
@@ -1635,12 +1972,12 @@ def phase_profile(system, ds, train_system):
     log(f"  prof train step: device ms by part {summary}")
 
 
-def kernel_rows(render_errs, train_checks, launches, probes,
+def kernel_rows(render_errs, train_checks, quality_checks, launches, probes,
                 probe_launches):
     """The kernels line: each kernel's launches in the timed training
-    steps, its largest error over every variant checked (render and
-    training), and the time and bound of its PRIMARY training variant
-    (K2 bwd's on step LATE_STEP's launch);
+    steps, its largest error over every variant checked (render,
+    training and the quality gate), and the time and bound of its
+    PRIMARY training variant (K2 bwd's on step LATE_STEP's launch);
     then each probe kernel, its launches in the probes phase (per
     training step: 0), its largest error over its variants and the
     numbers of its PROBES variant."""
@@ -1648,6 +1985,8 @@ def kernel_rows(render_errs, train_checks, launches, probes,
     for name, (_, source, replaces) in KERNELS.items():
         checks = train_checks[name]
         err = max([c["max_abs_err"] for c in checks.values()]
+                  + [c["max_abs_err"]
+                     for c in quality_checks.get(name, {}).values()]
                   + [render_errs.get(name, 0.0)])
         p = checks.get(f"step {LATE_STEP}, {PRIMARY[name]}",
                        checks[PRIMARY[name]])
@@ -1692,12 +2031,14 @@ def main(argv):
     train_system, train_checks, launches = phase_train(bench_hparams())
     phase_train_reference()
     probes, probe_launches = phase_probes()
+    phase_cli()
+    quality_checks, _ = phase_quality()
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
     print(json.dumps({"kernels": kernel_rows(render_errs, train_checks,
-                                             launches, probes,
-                                             probe_launches)}),
+                                             quality_checks, launches,
+                                             probes, probe_launches)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name, "count": count}}),

@@ -4,8 +4,8 @@ block-table derivation that ends it.
 
 Cells are addressed row-major (x fastest). The refresh's random draws
 (the uniform and occupied cell samples and the position jitter) are
-explicit inputs: `grid_draws` makes them from a torch.Generator on the
-device, and tests hand in draws of their own.
+explicit inputs: `grid_draws` makes them from a PRNG key on the device,
+as the JAX package draws them from its key (core/prng.py).
 
 Grid state (a dict):
   density_grid: (C, G3) float32; -1 marks camera-invisible cells
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import prng
 from ..ops.march import build_block_table
 from ..ops.pack import packbits_u32
 
@@ -95,23 +96,24 @@ def mark_invisible_cells(grid, K, poses, img_w: int, img_h: int,
             "bitfield": grid["bitfield"], "block_table": grid["block_table"]}
 
 
-def grid_draws(generator, grid_size: int, cascades: int, warmup: bool,
+def grid_draws(key, grid_size: int, cascades: int, warmup: bool,
                device=None):
-    """The random inputs of one refresh, per cascade: `idx_u` (M,) uniform
+    """The random inputs of one refresh from the PRNG key, per cascade
+    (the JAX package's draws from the same key): `idx_u` (M,) uniform
     cell ids and `u_occ` (M,) uniforms in [0, 1) for the occupied draw
     (absent in warmup, which sweeps every cell), and `jitter` (n, 3)
     uniforms in [-1, 1) that scale the half cell size."""
     g3 = grid_size ** 3
     M = g3 // 4
-    kw = {"generator": generator, "device": device}
     out = []
     for _ in range(cascades):
+        key, k_cells, k_occ, k_jit = prng.split(key, 4)
         d = {}
         if not warmup:
-            d["idx_u"] = torch.randint(0, g3, (M,), **kw)
-            d["u_occ"] = torch.rand((M,), **kw)
+            d["idx_u"] = prng.randint(k_cells, (M,), 0, g3, device)
+            d["u_occ"] = prng.uniform(k_occ, (M,), device=device)
         n = g3 if warmup else 2 * M
-        d["jitter"] = torch.rand((n, 3), **kw) * 2.0 - 1.0
+        d["jitter"] = prng.uniform(k_jit, (n, 3), -1.0, 1.0, device)
         out.append(d)
     return out
 

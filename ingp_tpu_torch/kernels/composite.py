@@ -30,6 +30,17 @@ from . import build
 BWD_MAX_S = 227 * 1024 // (4 * 9 * 8)
 
 
+def alpha_of(sd):
+    """A sample's alpha 1 - exp(-sd) (the reference's form), with exp(-sd)
+    rounded once to float32 from a float64 exp: the float32 nearest the
+    exact value on every device, as the kernels' `k3_alpha` takes it. The
+    cancellation multiplies the error of exp(-sd) by 1/sd, so a float32
+    exp one ulp off (as a device's may be where another's is not) moves
+    alpha by 5e-5 of itself at sd ~1e-3, and every weight of a ray by that
+    much where the field is flat (a fresh bf16 model's first step)."""
+    return 1.0 - torch.exp(-sd.double()).float()
+
+
 def composite_plain(sigmas, deltas, ts, valid, T_threshold: float,
                     rgbs=None, aux=None, with_Ts: bool = False):
     """Plain PyTorch version of `composite_fwd` (same contract)."""
@@ -37,7 +48,7 @@ def composite_plain(sigmas, deltas, ts, valid, T_threshold: float,
     csum = torch.cumsum(sd, -1)
     Ts = torch.exp(-(csum - sd))
     include = valid & (Ts > T_threshold)
-    ws = torch.where(include, (1.0 - torch.exp(-sd)) * Ts, 0.0)
+    ws = torch.where(include, alpha_of(sd) * Ts, 0.0)
     out = {
         "ws": ws,
         "opacity": ws.sum(-1),
@@ -169,7 +180,7 @@ def composite_bwd_plain(sigmas, deltas, ts, valid, T_threshold: float,
     csum = torch.cumsum(sd, -1)
     Ts = torch.exp(-(csum - sd))
     include = valid & (Ts > T_threshold)
-    alpha = 1.0 - torch.exp(-sd)
+    alpha = alpha_of(sd)
     ws = torch.where(include, alpha * Ts, 0.0)
     T_after = Ts * (1.0 - alpha)
     dwe = dws

@@ -6,10 +6,11 @@
 // sigma*dt : 0, inclusive running sum csum, transmittance before the
 // sample T = exp(-(csum - sd)), include = valid && T > thr, w = include ?
 // (1 - exp(-sd)) * T : 0 -- the include rule of composite_pallas.py:35-50
-// (k3.cuh). It writes ws (and, when asked, Ts for the test render's
-// visibility cut), opacity, depth (only when ts is given), rgb, the count
-// of samples with w > 0, and the weighted sums of the aux channels
-// (normal_pred, normal_raw, semantics: (C, R, S) -> (R, C)).
+// (k3.cuh; 1 - exp(-sd) is k3_alpha). It writes ws (and, when asked, Ts
+// for the test render's visibility cut), opacity, depth (only when ts is
+// given), rgb, the count of samples with w > 0, and the weighted sums of
+// the aux channels (normal_pred, normal_raw, semantics: (C, R, S) ->
+// (R, C)).
 //
 // Bound on the H100: bytes. Each (ray, sample) reads sigma, dt, valid, t,
 // 3 rgb and C aux values and writes ws (and Ts); a handful of flops per
@@ -154,7 +155,7 @@ __global__ void __launch_bounds__(kK3FwdThreads)
       __syncwarp();
       if (in) {
         const float T = k3_T(cs[lane], sd);
-        const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
+        const float w = (v && T > thr) ? k3_alpha(sd) * T : 0.f;
         if (first) {
           ws[i] = w;
           if (Ts) Ts[i] = T;
@@ -266,7 +267,7 @@ __global__ void __launch_bounds__(kK3Warps * 32)
     if (in) {
       const float T = k3_T(sm[K3_CSUM * S + s], sd);
       const bool inc = v && T > thr;
-      const float alpha = 1.f - expf(-sd);
+      const float alpha = k3_alpha(sd);
       const float w = inc ? alpha * T : 0.f;
       sm[K3_W * S + s] = w;
       sm[K3_TA * S + s] = T * (1.f - alpha);

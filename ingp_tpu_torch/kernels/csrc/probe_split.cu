@@ -74,13 +74,15 @@
 //
 //   K3 backward (composite_bwd_kernel of composite.cu before the
 //   warp-per-ray form replaced it: a thread per ray walking its S
-//   samples twice), K3B_FULL only, unchanged.
+//   samples twice), K3B_FULL only, unchanged but for its alpha
+//   (k3_alpha).
 //
 //   K3 forward (composite_fwd_kernel of composite.cu before the
 //   group-per-ray form replaced it: a thread per ray, loads and stores at
 //   the ray's S*4-byte stride across the warp, ws re-read for the aux
-//   sums), unchanged: `k3 fwd full`. It reads ts (the callers that have
-//   none pass a plane of zeros, as the step did before).
+//   sums), unchanged but for its alpha (k3_alpha): `k3 fwd full`. It
+//   reads ts (the callers that have none pass a plane of zeros, as the
+//   step did before).
 //
 // Bound on the H100: bytes, as rayreduce.cu and brickreduce.cu. Nothing
 // here ships: the wrapper is ingp_tpu_torch/probes/kernel_split.py.
@@ -543,7 +545,8 @@ int launch_k2b(int with_jac, int bf16, void* grad, void* scratch,
 }
 
 // composite_bwd_kernel before the warp-per-ray form (composite.cu),
-// unchanged: one thread walks one ray twice.
+// unchanged but for its alpha (k3_alpha, as the shipping kernel): one
+// thread walks one ray twice.
 __global__ void __launch_bounds__(128)
     split_k3b_kernel(const float* __restrict__ sig,
                      const float* __restrict__ dt,
@@ -578,7 +581,7 @@ __global__ void __launch_bounds__(128)
     const float sd = v ? sig[i] * dt[i] : 0.f;
     csum += sd;
     const float T = expf(-(csum - sd));
-    const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
+    const float w = (v && T > thr) ? k3_alpha(sd) * T : 0.f;
     O += w;
     D += w * ts[i];
     C0 += w * rgbs[i];
@@ -596,7 +599,7 @@ __global__ void __launch_bounds__(128)
     csum += sd;
     const float T = expf(-(csum - sd));
     const bool inc = v && T > thr;
-    const float alpha = 1.f - expf(-sd);
+    const float alpha = k3_alpha(sd);
     const float w = inc ? alpha * T : 0.f;
     const float Ta = T * (1.f - alpha);
     const float t = ts[i];
@@ -621,7 +624,8 @@ __global__ void __launch_bounds__(128)
 }
 
 // composite_fwd_kernel before the group-per-ray form (composite.cu),
-// unchanged: one thread walks one ray.
+// unchanged but for its alpha (k3_alpha, as the shipping kernel): one
+// thread walks one ray.
 __global__ void __launch_bounds__(128)
     split_k3f_kernel(const float* __restrict__ sig,
                      const float* __restrict__ dt,
@@ -645,7 +649,7 @@ __global__ void __launch_bounds__(128)
     const float sd = k3_sd(v, sig[i], dt[i]);
     csum = __fadd_rn(csum, sd);
     const float T = k3_T(csum, sd);
-    const float w = (v && T > thr) ? (1.f - expf(-sd)) * T : 0.f;
+    const float w = (v && T > thr) ? k3_alpha(sd) * T : 0.f;
     ws[i] = w;
     if (Ts) Ts[i] = T;
     op += w;

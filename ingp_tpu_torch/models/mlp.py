@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as nnf
 
+from ..core import prng
+
 _ACTS = {
     "relu": torch.relu,
     "softplus": nnf.softplus,
@@ -23,15 +25,16 @@ _ACTS = {
 }
 
 
-def mlp_init(dims, generator=None, device=None):
+def mlp_init(dims, key, device=None):
     """dims: (in, hidden..., out) -> list of layer dicts, uniform in
-    +-1/sqrt(fan_in) (torch.nn.Linear's default bound)."""
+    +-1/sqrt(fan_in) (torch.nn.Linear's default bound), drawn from the
+    PRNG key as the JAX package's mlp_init draws them."""
     layers = []
     for a, b in zip(dims[:-1], dims[1:]):
+        key, kw, kb = prng.split(key, 3)
         bound = 1.0 / math.sqrt(a)
-        w = torch.rand((a, b), generator=generator, device=device)
-        bias = torch.rand((b,), generator=generator, device=device)
-        layers.append({"w": (w * 2 - 1) * bound, "b": (bias * 2 - 1) * bound})
+        layers.append({"w": prng.uniform(kw, (a, b), -bound, bound, device),
+                       "b": prng.uniform(kb, (b,), -bound, bound, device)})
     return layers
 
 

@@ -1,11 +1,12 @@
-"""The NGP radiance field on the brick encoder (counterpart of
+"""The NGP radiance field on the brick and hash encoders (counterpart of
 ingp_tpu/models/ngp.py, forward).
 
 Parameters are a plain tree of tensors with the JAX package's structure:
 
   params = {
-    "density_table": (bricks, row_width) f32 brick table,
-    "rgb_table":     (bricks, row_width) f32 brick table,
+    "density_table": brick table (bricks, row_width) or hash table
+                     (total_rows, F), f32,
+    "rgb_table":     the same for the colour features,
     "xyz_net":  MLP L*F -> 128 -> 1 (softplus hidden),
     "rgb_net":  MLP (16 + L*F) -> 128 -> 3,
     "norm_net": MLP L*F -> 32 -> 3,
@@ -13,8 +14,10 @@ Parameters are a plain tree of tensors with the JAX package's structure:
   }
 
 `params_from_numpy` / `params_to_numpy` carry an `ngp_init` pytree of
-the JAX package across unchanged: the brick tables keep the stored row
-layout and the MLP layers the `mlp_init` order.
+the JAX package across: the brick tables keep the stored row layout,
+the MLP layers the `mlp_init` order, and the hash tables, which the JAX
+package keeps feature-major (F, total_rows), are transposed to the
+port's row-major (total_rows, F) and back (`hash_layout`).
 
 The density MLP's vector-Jacobian product (for the density gradient
 that gives the raw normals) is written out by hand: softplus' = sigmoid
@@ -29,10 +32,13 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from ..core import prng
 from ..core.cascade import n_cascades
 from ..ops.brickgrid import (BrickGridConfig, brickgrid_encode,
                              brickgrid_encode_grad, brickgrid_init)
 from ..ops.gather import to_torch_dtype
+from ..ops.hashgrid import (HashGridConfig, hashgrid_encode,
+                            hashgrid_encode_grad, hashgrid_init)
 from ..ops.sh import sh_encode_cm
 from ..ops.streambrick import streambrick_encode, streambrick_encode_grad
 from .mlp import _ACTS, dot, mlp_apply_cm, mlp_init, round_to
@@ -52,8 +58,8 @@ class NGPConfig:
     NGPConfig except encode_remat (a JAX rematerialisation policy) and
     stream_seg_head / stream_head_frac / stream_caps (tile caps of the
     training step's sorted stream; the test render's stream is
-    unsorted). The port runs encoder="brick" with rgb_act="sigmoid" and
-    no skybox / appearance embedding (the bench's model)."""
+    unsorted). The port runs encoder="brick" or "hash" with
+    rgb_act="sigmoid" and no skybox / appearance embedding."""
     scale: float = 0.5
     rgb_act: str = "sigmoid"
     use_skybox: bool = False
@@ -84,6 +90,22 @@ class NGPConfig:
     def cascades(self) -> int:
         return n_cascades(self.scale)
 
+    def _hash_cfg(self, L, F, log2T) -> HashGridConfig:
+        return HashGridConfig(
+            n_levels=L, n_features=F, log2_hashmap_size=log2T,
+            base_resolution=self.base_res,
+            per_level_scale=per_level_scale_for(self.scale, L,
+                                                self.base_res))
+
+    @property
+    def density_grid_cfg(self) -> HashGridConfig:
+        return self._hash_cfg(self.density_L, self.density_F,
+                              self.density_log2T)
+
+    @property
+    def rgb_grid_cfg(self) -> HashGridConfig:
+        return self._hash_cfg(self.rgb_L, self.rgb_F, self.rgb_log2T)
+
     def _brick_cfg(self, L, F, log2T) -> BrickGridConfig:
         return BrickGridConfig(
             n_levels=L, n_features=F, log2_bricks=max(log2T - 5, 8),
@@ -111,49 +133,80 @@ class NGPConfig:
 
 
 def _check_supported(cfg: NGPConfig):
-    if cfg.encoder != "brick":
+    if cfg.encoder not in ("brick", "hash"):
         raise NotImplementedError(
-            f"encoder {cfg.encoder!r} is not ported yet (brick only)")
+            f"encoder {cfg.encoder!r} is not ported yet (brick and hash "
+            f"only)")
     if cfg.use_skybox or cfg.embed_a or cfg.rgb_act != "sigmoid":
         raise NotImplementedError(
             "skybox, appearance embeddings and HDR tonemapping are not "
             "ported yet")
 
 
-def ngp_init(cfg: NGPConfig, generator=None, device=None):
+def ngp_init(cfg: NGPConfig, key, device=None):
     """Random parameters (tables uniform in +-1e-4, MLPs as mlp_init),
-    drawn from `generator`."""
+    drawn from the PRNG key (core/prng.py) as the JAX package's ngp_init
+    draws them: the same values for the same key."""
     _check_supported(cfg)
     LFd = cfg.density_L * cfg.density_F
     LFr = cfg.rgb_L * cfg.rgb_F
-    kw = {"generator": generator, "device": device}
+    keys = prng.split(key, 10)
+    if cfg.encoder == "hash":
+        init, dcfg, rcfg = (hashgrid_init, cfg.density_grid_cfg,
+                            cfg.rgb_grid_cfg)
+    else:
+        init, dcfg, rcfg = (brickgrid_init, cfg.density_brick_cfg,
+                            cfg.rgb_brick_cfg)
     return {
-        "density_table": brickgrid_init(cfg.density_brick_cfg, **kw),
-        "xyz_net": mlp_init((LFd, 128, 1), **kw),
-        "rgb_table": brickgrid_init(cfg.rgb_brick_cfg, **kw),
-        "rgb_net": mlp_init((cfg.rgb_in_dim, 128, 3), **kw),
-        "norm_net": mlp_init((LFr, 32, 3), **kw),
-        "sem_net": mlp_init((LFr, 32, cfg.classes), **kw),
+        "density_table": init(dcfg, keys[0], device),
+        "xyz_net": mlp_init((LFd, 128, 1), keys[1], device),
+        "rgb_table": init(rcfg, keys[2], device),
+        "rgb_net": mlp_init((cfg.rgb_in_dim, 128, 3), keys[3], device),
+        "norm_net": mlp_init((LFr, 32, 3), keys[4], device),
+        "sem_net": mlp_init((LFr, 32, cfg.classes), keys[5], device),
     }
 
 
-def params_from_numpy(tree, device=None):
-    """ingp_tpu `ngp_init` pytree (numpy leaves) -> the port's tree."""
+HASH_TABLES = ("density_table", "rgb_table")
+
+
+def hash_layout(tree, cfg: NGPConfig | None):
+    """tree with its hash tables (the HASH_TABLES leaves, at any depth)
+    transposed between the JAX package's (F, total_rows) and the port's
+    (total_rows, F) layout, when cfg's encoder is "hash"; the same tree
+    otherwise. Its own inverse, for params and for Adam moments alike."""
+    if cfg is None or cfg.encoder != "hash":
+        return tree
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return t.T if key in HASH_TABLES else t
+    return walk(tree)
+
+
+def params_from_numpy(tree, device=None, cfg: NGPConfig | None = None):
+    """ingp_tpu `ngp_init` pytree (numpy leaves) -> the port's tree (hash
+    tables transposed where cfg says the encoder is "hash")."""
+    tree = hash_layout(tree, cfg)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.as_tensor(np.array(tree), device=device)
+    return torch.as_tensor(np.array(tree, order="C"), device=device)
 
 
-def params_to_numpy(tree):
+def params_to_numpy(tree, cfg: NGPConfig | None = None):
     """Inverse of params_from_numpy: copies, which later in-place
     updates of the tensors (the optimiser's) leave as they are."""
+    tree = hash_layout(tree, cfg)
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy().copy()
+    return np.array(tree.detach().cpu().numpy(), order="C")
 
 
 def _normalize_coords(cfg: NGPConfig, x):
@@ -175,8 +228,14 @@ def _stream_kwargs(cfg: NGPConfig):
                 seg_est=cfg.stream_seg, direct_frac=cfg.stream_direct_frac)
 
 
-def _brick_encode(cfg: NGPConfig, bcfg, table, u_cm, stream):
-    """Stream-dedup or per-sample brick encode of (3, N) coords."""
+def _encode(cfg: NGPConfig, which, table, u_cm, stream):
+    """Hash, stream-dedup or per-sample brick encode of (3, N) coords on
+    the `which` ("density" or "rgb") table."""
+    if cfg.encoder == "hash":
+        return hashgrid_encode(getattr(cfg, f"{which}_grid_cfg"), table,
+                               u_cm, storage_dtype=_storage_dt(cfg),
+                               x_cm=True)
+    bcfg = getattr(cfg, f"{which}_brick_cfg")
     if _use_stream(cfg, stream):
         return streambrick_encode(bcfg, table, u_cm, **_stream_kwargs(cfg))
     return brickgrid_encode(bcfg, table, u_cm, chunk=cfg.encode_chunk,
@@ -213,10 +272,14 @@ def ngp_sigma_cm(cfg: NGPConfig, params, x_cm, stream=False):
     """Density only: x_cm (3, N) world coords -> (N,) sigma."""
     _check_supported(cfg)
     u = _normalize_coords(cfg, x_cm)
-    h = _brick_encode(cfg, cfg.density_brick_cfg, params["density_table"],
-                      u, stream)
+    h = _encode(cfg, "density", params["density_table"], u, stream)
     raw, _ = _density_mlp(cfg, params, h)
     return nnf.softplus(raw)
+
+
+def ngp_sigma(cfg: NGPConfig, params, x):
+    """Density only, row-major: x (N, 3) world coords -> (N,) sigma."""
+    return ngp_sigma_cm(cfg, params, x.T)
 
 
 def ngp_grad_cm(cfg: NGPConfig, params, x_cm, stream=False):
@@ -225,21 +288,23 @@ def ngp_grad_cm(cfg: NGPConfig, params, x_cm, stream=False):
     MLP's vjp."""
     _check_supported(cfg)
     u = _normalize_coords(cfg, x_cm)
-    bcfg = cfg.density_brick_cfg
     table = params["density_table"]
-    if _use_stream(cfg, stream):
-        feats, jac = streambrick_encode_grad(bcfg, table, u,
+    if cfg.encoder == "hash":
+        feats, jac = hashgrid_encode_grad(
+            cfg.density_grid_cfg, table, u, storage_dtype=_storage_dt(cfg),
+            x_cm=True)
+    elif _use_stream(cfg, stream):
+        feats, jac = streambrick_encode_grad(cfg.density_brick_cfg, table, u,
                                              **_stream_kwargs(cfg))
     else:
         feats, jac = brickgrid_encode_grad(
-            bcfg, table, u, chunk=cfg.encode_chunk,
+            cfg.density_brick_cfg, table, u, chunk=cfg.encode_chunk,
             storage_dtype=_storage_dt(cfg), x_cm=True)
     raw, pre = _density_mlp(cfg, params, feats)
     sigmas = nnf.softplus(raw)
     dfeat = _density_mlp_vjp(cfg, params, pre, torch.sigmoid(raw))
     grads = torch.einsum("dnf,nf->dn", jac, dfeat) / (2.0 * cfg.scale)
-    feat_rgb = _brick_encode(cfg, cfg.rgb_brick_cfg, params["rgb_table"],
-                             u, stream)
+    feat_rgb = _encode(cfg, "rgb", params["rgb_table"], u, stream)
     return sigmas, feat_rgb, grads
 
 

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import prng
 from ..kernels.brickreduce import brick_reduce_read
 from .gather import table_read
 
@@ -82,11 +83,11 @@ class BrickGridConfig:
         return self.n_levels * self.n_features
 
 
-def brickgrid_init(cfg: BrickGridConfig, generator=None, device=None):
-    """(total_bricks, row_width) f32 table, uniform in [-1e-4, 1e-4]."""
-    t = torch.rand((cfg.total_bricks, cfg.row_width), generator=generator,
-                   device=device)
-    return t * 2e-4 - 1e-4
+def brickgrid_init(cfg: BrickGridConfig, key, device=None):
+    """(total_bricks, row_width) f32 table, uniform in [-1e-4, 1e-4],
+    drawn from the PRNG key as the JAX package draws it."""
+    return prng.uniform(key, (cfg.total_bricks, cfg.row_width), -1e-4,
+                        1e-4, device)
 
 
 def brick_coords(cfg: BrickGridConfig, xT):

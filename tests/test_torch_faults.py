@@ -1,12 +1,15 @@
 """The port's trainer reads every hparam the JAX trainer reads, or refuses
 it: `seed` seeds the port's generator (an explicit `seed=` still wins),
-and `stream_autocal`, `ckpt_load` and `eval_lpips`, which the port has
-not ported, raise NotImplementedError instead of being dropped."""
+`ckpt_load` loads its checkpoint, and `stream_autocal`, `eval_lpips`,
+`stream_head_frac` and the `fused` encoder, which the port has not
+ported, raise NotImplementedError instead of being dropped; so do the
+CLI flags that `ingp_tpu_torch.train.main` cannot honour yet."""
 from types import SimpleNamespace
 
 import pytest
 import torch
 
+from ingp_tpu_torch import train as train_cli
 from ingp_tpu_torch.data.synthetic import SyntheticDataset
 from ingp_tpu_torch.training import trainer as tt
 from ingp_tpu_torch.training.trainer import tree_leaves
@@ -43,8 +46,9 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("hparam", ["stream_autocal", "ckpt_load",
-                                    "eval_lpips", "seed"])
-def test_hparam_honoured_or_refused(hparam):
+                                    "eval_lpips", "seed", "stream_head_frac",
+                                    "fused"])
+def test_hparam_honoured_or_refused(hparam, tmp_path):
     if hparam == "seed":
         one, two = _params(_hparams(seed=1)), _params(_hparams(seed=2))
         assert not _same(one, two)
@@ -56,6 +60,43 @@ def test_hparam_honoured_or_refused(hparam):
         del h.seed
         assert _same(_params(h), _params(_hparams(seed=0)))
         return
-    value = "ckpts/missing.ckpt" if hparam == "ckpt_load" else True
+    if hparam == "ckpt_load":
+        tr = SyntheticDataset(split="train", img_size=8, n_train=2)
+        saved = tt.NeRFSystem(_hparams(seed=4), tr, device="cpu")
+        saved.global_step = 7
+        saved.save(tmp_path / "ckpt")
+        h = _hparams(ckpt_load=str(tmp_path / "ckpt"))
+        loaded = tt.NeRFSystem(h, tr, device="cpu")
+        assert loaded.global_step == 7
+        assert _same(_params(h), [t.detach() for _, t in
+                                  tree_leaves(saved.params)])
+        assert not _same(_params(h), _params(_hparams()))
+        return
+    kw = {"encoder": "fused"} if hparam == "fused" else \
+        {hparam: 0.5 if hparam == "stream_head_frac" else True}
     with pytest.raises(NotImplementedError, match=hparam):
-        _params(_hparams(**{hparam: value}))
+        _params(_hparams(**kw))
+
+
+# flags of the CLI that `train.main` refuses at its start, with what they
+# would do in the JAX entry point
+CLI_REFUSED = {
+    "save_test": ([], "offline test render"),
+    "distributed": (["--no_save_test", "--distributed"], "distributed"),
+    "coordinator_address": (["--no_save_test", "--coordinator_address",
+                             "localhost:1"], "coordinator_address"),
+    "num_gpus": (["--no_save_test", "--num_gpus", "2"], "num_gpus"),
+    "debug_nans": (["--no_save_test", "--debug_nans"], "debug_nans"),
+}
+
+
+@pytest.mark.parametrize("flag", list(CLI_REFUSED))
+def test_cli_flag_refused(flag, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    argv, match = CLI_REFUSED[flag]
+    with pytest.raises(NotImplementedError, match=match):
+        train_cli.main(["--dataset_name", "synthetic"] + argv,
+                       device="cpu")
+    assert not (tmp_path / "ckpts").exists()
+    with pytest.raises(ValueError, match="ckpt_load"):
+        train_cli.main(["--val_only"], device="cpu")

@@ -17,6 +17,7 @@ from ingp_tpu.ops.activations import trunc_exp as j_trunc_exp
 from ingp_tpu.ops.pallas.composite_pallas import composite_pallas
 from ingp_tpu.ops.sh import sh_encode_cm as j_sh
 
+from ingp_tpu_torch.core import prng
 from ingp_tpu_torch.kernels import composite as k3
 from ingp_tpu_torch.models import mlp as tmlp
 from ingp_tpu_torch.models import ngp as tngp
@@ -82,12 +83,17 @@ def test_params_roundtrip_and_init_shapes():
     assert jax.tree.structure(back) == jax.tree.structure(p)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(p)):
         np.testing.assert_array_equal(a, b)
-    mine = tngp.ngp_init(tc, torch.Generator().manual_seed(0), "cpu")
+    mine = tngp.ngp_init(tc, prng.prng_key(0), "cpu")
     assert jax.tree.structure(tngp.params_to_numpy(mine)) == \
         jax.tree.structure(p)
     for a, b in zip(jax.tree.leaves(tngp.params_to_numpy(mine)),
                     jax.tree.leaves(p)):
         assert a.shape == b.shape and a.dtype == b.dtype
+    # the same key draws the JAX package's values
+    ref = jngp.ngp_init(jax.random.PRNGKey(0), jc)
+    for a, b in zip(jax.tree.leaves(tngp.params_to_numpy(mine)),
+                    jax.tree.leaves(ref)):
+        np.testing.assert_array_equal(a, np.asarray(b))
     assert dataclasses.asdict(tc.density_brick_cfg) == \
         dataclasses.asdict(jc.density_brick_cfg)
 

@@ -15,6 +15,7 @@ from ingp_tpu.models import ngp as jngp
 from ingp_tpu.models import rendering as jr
 from ingp_tpu.training import trainer as jt
 
+from ingp_tpu_torch.core import prng
 from ingp_tpu_torch.grid import occupancy as tocc
 from ingp_tpu_torch.models import ngp as tngp
 from ingp_tpu_torch.models import rendering as tr
@@ -135,9 +136,14 @@ def test_update_density_grid_matches():
 
 
 def test_grid_draws_shapes():
-    gen = torch.Generator().manual_seed(0)
     for warmup in (True, False):
-        d = tocc.grid_draws(gen, 8, 2, warmup)
+        d = tocc.grid_draws(prng.prng_key(3), 8, 2, warmup)
+        # the JAX package's draws from the same key
+        for mine, ref in zip(d, _jax_draws(jax.random.PRNGKey(3), 8, 2,
+                                           warmup)):
+            assert set(mine) == set(ref)
+            for k in ref:
+                assert torch.equal(mine[k], ref[k].to(mine[k].dtype)), k
         assert len(d) == 2
         n = 512 if warmup else 256
         assert d[0]["jitter"].shape == (n, 3)
