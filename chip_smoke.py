@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --reference-spread]
 
 Phases, each line flushed and stamped with elapsed seconds:
 
@@ -49,9 +49,21 @@ Phases, each line flushed and stamped with elapsed seconds:
    and count bitwise) and timed beside them on the recorded inputs, from
    the host and from a CUDA graph, K2 backward also on the last untimed
    step's launches with the K2 bwd split's stubs;
-7. train reference: one small training step on the card and on the CPU
+7. features: configs/Playground.txt's model flags (appearance codes of
+   8, the transient mask, the random background) and the skybox on the
+   training step of phase 6 at full width: 3 untimed steps with the
+   skybox's gate closed, 3 at the trainer's WARMUP_STEPS with it open,
+   then 20 timed steps (step ms, training rays/s and peak memory beside
+   phase 6's); the first step's kernel variants (K3 bwd's opacity
+   cotangent now carrying the background's -bg . dC) against their
+   plain versions on the CPU as in phase 6; one 256x256 test view with
+   image 0's appearance code and the skybox, timed, its K3 launches
+   checked; and a small step with the same features plus the HDR
+   tonemapper and its unit-exposure anchor, gate open, card against CPU
+   as in phase 8;
+8. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
-8. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
+9. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
    forms of the TPU layout probes under benchmarking/; what each
    module's main() runs on the card, `probes.common.measure`) over
    every variant of the four probe kernels at the probes' full shapes,
@@ -71,7 +83,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    4-byte-offset cases of the card tests, bitwise. Every probe kernel
    must have been launched by the timed runs (the checks' launches are
    left out of the counts); none runs on the training path;
-9. cli: `ingp_tpu_torch.train.main` on configs/synthetic_smoke.txt at
+10. cli: `ingp_tpu_torch.train.main` on configs/synthetic_smoke.txt at
    its own 500 steps of 2048 rays (the hash encoder, f32 tables, the
    sparsity prior), in a temporary working directory, with the launch
    counts set to 0 before it: the step time, the losses of the first and
@@ -81,7 +93,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    --val_only` must give the same PSNR and SSIM to 1e-6; then the hash
    encode, its jacobian and its table gradient on the card against the
    CPU, within 1e-5 of the largest value;
-10. quality: the port's quality gate (`ingp_tpu_torch.quality_synthetic`
+11. quality: the port's quality gate (`ingp_tpu_torch.quality_synthetic`
    at its defaults: 600 steps of 8192 rays over 100 views at 256 px,
    a stream of two chunks, the sparsity prior), with the launch counts
    set to 0 before it, and its RESULT line. The first step's K2 forward
@@ -90,9 +102,14 @@ Phases, each line flushed and stamped with elapsed seconds:
    against their plain versions on the CPU, with times and bounds, as in
    phase 6; then a miss of the bar (novel PSNR >= 26.0, SSIM >= 0.865)
    fails the run;
-11. the kernels JSON line (`launches`: the training window's count for
+12. the kernels JSON line (`launches`: the training window's count for
    the six package kernels, the probes phase's for the probe kernels;
    `launches_per_train_step` for all), then the result line.
+
+With --reference-spread, only the device and build phases run, then
+the small card-vs-CPU step of phases "train reference" and "features"
+(gate open, and closed) at batch seeds 5-10, unchecked, one line of its
+worst gradient leaves each; it exits 0 without the result lines.
 
 With --profile, a torch.profiler pass over one more render and one more
 training step prints the CUDA time per op and of each launch of the
@@ -988,7 +1005,10 @@ def check_k3_bwd(a, tag):
     from ingp_tpu_torch.kernels import composite as k3
     sig, valid, C = a["sigmas"], a["valid"], a["aux"].shape[0]
     R, S = sig.shape
-    log(f"kernel composite_bwd [{tag}]: sigmas {(R, S)}, aux channels {C}")
+    log(f"kernel composite_bwd [{tag}]: sigmas {(R, S)}, aux channels {C}; "
+        f"cotangents max |dO| {float(a['dO'].abs().max()):.3e} (a "
+        f"background adds -bg . dC), |dC| {float(a['dC'].abs().max()):.3e}, "
+        f"|dD| {float(a['dD'].abs().max()):.3e}")
     nbytes = R * S * (4 * 3 + 1 + 12 + 4 * C + 4) + R * 4 * (2 + 3 + C) \
         + R * S * 4 * (1 + 3 + C)
     flops = R * S * (40 + 4 * C)
@@ -1109,6 +1129,7 @@ def phase_train(h):
     from ingp_tpu_torch.data.synthetic import SyntheticDataset
     from ingp_tpu_torch.training.trainer import NeRFSystem, tree_leaves
     t = time.time()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     tr = SyntheticDataset(split="train", img_size=IMG_SIZE, n_train=N_VIEWS)
     te = SyntheticDataset(split="test", img_size=IMG_SIZE, n_test=1)
     system = NeRFSystem(h, tr, te, device=DEVICE, seed=0)
@@ -1201,7 +1222,156 @@ def phase_train(h):
     for path, p in tree_leaves(system.params):
         if not bool(torch.isfinite(p).all()):
             raise AssertionError(f"non-finite parameter {path}")
-    return system, checks, launches
+    stats = {"step_ms": step_ms, "rays_per_s": STEPS_MEASURE * BATCH / dt,
+             "peak_gib": peak, "held_gib": held}
+    return system, checks, launches, stats
+
+
+# phase "features": configs/Playground.txt's model flags and the skybox at
+# bench.py's width; untimed steps with the skybox's gate closed, then at
+# the trainer's WARMUP_STEPS with it open, then a timed window
+FEATURES = dict(embed_a=True, embed_a_len=8, embed_msk=True, random_bg=True,
+                use_skybox=True)
+FEATURE_STEPS_CLOSED, FEATURE_STEPS_OPEN, FEATURE_STEPS_MEASURE = 3, 3, 20
+
+
+def phase_features(train_stats):
+    """The training step with the model features on (FEATURES) at full
+    width, as phase "train" runs it: FEATURE_STEPS_CLOSED untimed steps
+    with the skybox's gate closed (the random background behind the
+    rays), whose first records every kernel variant it launches; then
+    global_step set to WARMUP_STEPS and FEATURE_STEPS_OPEN untimed steps
+    with the gate open; then FEATURE_STEPS_MEASURE timed steps on staged
+    batches, with the launch counts set to 0 before them (step ms,
+    training rays/s and peak memory beside phase "train"'s). The first
+    step's variants are then held against their plain versions on the
+    CPU (K3 bwd's opacity cotangent carries the background's -bg . dC);
+    one 256x256 test view with image 0's appearance code and the skybox
+    is rendered twice (the second timed), the first's K3 launches held
+    against their plain versions; and a small step with the features and use_exposure (the
+    HDR anchor's unit_exposure_rgb set on the dataset), gate open, must
+    agree between the card and the CPU (`reference_step`). Returns
+    {kernel: {variant: numbers}}."""
+    import math
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.data.synthetic import SyntheticDataset
+    from ingp_tpu_torch.training.trainer import NeRFSystem, tree_leaves
+    t = time.time()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    tr = SyntheticDataset(split="train", img_size=IMG_SIZE, n_train=N_VIEWS)
+    te = SyntheticDataset(split="test", img_size=IMG_SIZE, n_test=1)
+    system = NeRFSystem(bench_hparams(**FEATURES), tr, te, device=DEVICE,
+                        seed=0)
+    torch.cuda.synchronize()
+    log(f"features: {FEATURES}; parameters "
+        f"{sorted(system.params)}, model heads "
+        f"{sorted(k for k in system.params['model'] if 'net' in k)}; "
+        f"set-up {time.time() - t:.2f} s")
+    recs = record_kernels(system.model_cfg, KERNELS)
+    rng = np.random.default_rng(1)
+    losses, gates = [], []
+    t = time.time()
+    for i in range(FEATURE_STEPS_CLOSED + FEATURE_STEPS_OPEN):
+        if i == FEATURE_STEPS_CLOSED:
+            system.global_step = system.WARMUP_STEPS
+        gates.append(system.global_step >= system.WARMUP_STEPS)
+        aux = system.training_step(tr.sample_batch(rng, BATCH))
+        losses.append(aux["loss"])
+        if i == 0:
+            for name, r in recs.items():
+                r.restore()
+                if PRIMARY[name] not in r.calls:
+                    raise AssertionError(f"features: {name} "
+                                         f"[{PRIMARY[name]}] was not called")
+    torch.cuda.synchronize()
+    log(f"features: {len(gates)} untimed steps (skybox gate open: {gates}) "
+        f"{time.time() - t:.2f} s; loss terms {sorted(aux['loss_terms'])}")
+    batches = [stage(tr.sample_batch(rng, BATCH), system.device)
+               for _ in range(FEATURE_STEPS_MEASURE)]
+    torch.cuda.synchronize()
+    clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for b in batches:
+        aux = system.training_step(b)
+        losses.append(aux["loss"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = dt / FEATURE_STEPS_MEASURE * 1e3
+    log(f"features: {FEATURE_STEPS_MEASURE} steps x {BATCH} rays in "
+        f"{dt:.3f} s: {step_ms:.2f} ms/step, "
+        f"{FEATURE_STEPS_MEASURE * BATCH / dt:.1f} training rays/s, peak "
+        f"{peak:.2f} GiB of which {held:.2f} GiB held by the earlier "
+        f"phases' systems (phase train: {train_stats['step_ms']:.2f} "
+        f"ms/step, {train_stats['rays_per_s']:.1f} rays/s, peak "
+        f"{train_stats['peak_gib']:.2f} GiB of which "
+        f"{train_stats['held_gib']:.2f} held before it); s_per_ray "
+        f"{float(aux['s_per_ray']):.2f}, psnr {float(aux['psnr']):.2f}")
+    log(f"features: launches per step "
+        f"{ {k: launches[k] / FEATURE_STEPS_MEASURE for k in KERNELS} }")
+    check_launched({k: launches[k] for k in KERNELS}, "the features phase")
+    losses = [float(v) for v in losses]
+    log(f"features: loss first step {losses[0]:.6f}, last {losses[-1]:.6f}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("features: non-finite training loss")
+    for path, p in tree_leaves(system.params):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"features: non-finite parameter {path}")
+    with torch.no_grad():
+        checks = {name: {f"features, {tag}":
+                         CHECKS[name](a, f"features, {tag}")
+                         for tag, (a, _) in r.calls.items()}
+                  for name, r in recs.items()}
+    del recs, batches
+    checks["composite"].update(feature_render(system, te))
+    reference_step("features reference",
+                   bench_hparams(**SMALL, **FEATURES, use_exposure=True,
+                                 batch_size=512, samples_per_ray=16),
+                   step=NeRFSystem.WARMUP_STEPS, unit_exposure_rgb=0.5)
+    del system
+    torch.cuda.empty_cache()
+    return checks
+
+
+def feature_render(system, te):
+    """One test view of the featured system (image 0's appearance code,
+    the skybox behind every ray): a first render records K3's launches,
+    a second is timed with the launch counts set to 0 before it; the
+    recorded launches are held against their plain versions on the CPU.
+    Returns K3's {variant: numbers}."""
+    import torch
+    recs = record_kernels(system.model_cfg, ("composite",))
+    system.render_image(te.poses[0])
+    recs["composite"].restore()
+    clear_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    out = system.render_image(te.poses[0])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    n = te.directions.shape[0]
+    launches = {k: v for k, v in launch_counts().items() if k in FWD}
+    log(f"features render: {n} rays, total_samples {out['total_samples']}, "
+        f"{wall * 1e3:.1f} ms wall, {n / wall:.1f} rays/s; launches "
+        f"{launches}")
+    check_launched(launches, "the featured render")
+    for k, v in out.items():
+        if k != "total_samples" and (v.shape[0] != n or not bool(
+                torch.isfinite(v.float()).all())):
+            raise AssertionError(f"features render: {k} {tuple(v.shape)}")
+    empty = out["opacity"] == 0
+    sky = out["rgb"][empty]
+    if not bool(empty.any()) or not bool((sky > 0).any()):
+        raise AssertionError("features render: no skybox behind empty rays")
+    log(f"features render: {int(empty.sum())} empty rays show the skybox "
+        f"(rgb mean {sky.mean(0).tolist()})")
+    with torch.no_grad():
+        return {f"features render, {tag}":
+                check_k3(a, f"features render, {tag}", "cpu")
+                for tag, (a, _) in recs["composite"].calls.items()}
 
 
 def check_train_kernels(recs):
@@ -1456,45 +1626,81 @@ def cpu_params(system):
 def phase_train_reference():
     """One small training step's loss and gradients on the card (kernels)
     and on the CPU (plain versions), from the same parameters, batch,
-    noise and grid. f32 throughout; sums in other orders (atomics, cuBLAS
-    against the CPU's matmul), so the loss is held to rtol 1e-5 and each
+    noise and grid (`reference_step`)."""
+    reference_step("train reference", bench_hparams(
+        **SMALL, batch_size=512, samples_per_ray=16))
+
+
+def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
+                   check=True):
+    """One small training step's loss and gradients at global step
+    `step` on the card (kernels) and on the CPU (plain versions), from
+    the same parameters, batch (drawn from batch_seed), noise, grid and
+    draws (both systems draw the same background from the same seed).
+    f32 throughout; sums in other orders (atomics, cuBLAS against the
+    CPU's matmul), so with check the loss is held to rtol 1e-5 and each
     gradient leaf to 1e-4 of its largest |value|, norm_net's to 1e-3 (it
     reaches the loss only through the Ref-NeRF term of the normalised
     density gradient, which amplifies rounding where that gradient is
-    short)."""
+    short). Returns {leaf: error as a fraction of its largest value}."""
     import numpy as np
     from ingp_tpu_torch.data.synthetic import SyntheticDataset
     from ingp_tpu_torch.training.trainer import NeRFSystem, tree_leaves
-    h = bench_hparams(**SMALL, batch_size=512, samples_per_ray=16)
     tr = SyntheticDataset(split="train", img_size=32, n_train=4)
+    if unit_exposure_rgb is not None:
+        tr.unit_exposure_rgb = unit_exposure_rgb
     gpu = NeRFSystem(h, tr, device=DEVICE, seed=3)
     for k in ("density_table", "rgb_table"):
         gpu.params["model"][k].data.mul_(1e3)
-    cpu = NeRFSystem(h, tr, device="cpu", params=gpu.params_to_numpy())
+    cpu = NeRFSystem(h, tr, device="cpu", seed=3,
+                     params=gpu.params_to_numpy())
     set_sphere_grid(gpu)
     set_sphere_grid(cpu)
-    rng = np.random.default_rng(5)
+    gpu.global_step = cpu.global_step = step
+    rng = np.random.default_rng(batch_seed)
     batch = tr.sample_batch(rng, 512)
     noise = rng.random(512, dtype=np.float32)
     aux_a, ga = gpu.loss_and_grads(batch, noise)
     aux_b, gb = cpu.loss_and_grads(batch, noise)
     la, lb = float(aux_a["loss"]), float(aux_b["loss"])
-    if not abs(la - lb) <= 1e-5 * abs(lb):
-        raise AssertionError(f"small step loss {la} (card) vs {lb} (cpu)")
+    if check and not abs(la - lb) <= 1e-5 * abs(lb):
+        raise AssertionError(f"{what}: loss {la} (card) vs {lb} (cpu)")
     worst = {}
     for (path, a), (_, b) in zip(tree_leaves(ga), tree_leaves(gb)):
         scale = float(b.abs().max())
-        rel = float((a.cpu() - b).abs().max()) / scale if scale else 0.0
+        rel = float((a.cpu() - b).abs().max()) / scale if scale else \
+            float(a.abs().max())
         name = ".".join(str(x) for x in path)
         worst[name] = rel
         tol = 1e-3 if "norm_net" in path else 1e-4
-        if not rel <= tol:
-            raise AssertionError(f"small step gradient {name}: {rel} of "
-                                 f"its largest value > {tol}")
-    log(f"train reference: 512 rays, loss {la:.8f} (card) vs {lb:.8f} "
-        f"(cpu); gradient leaves agree to "
-        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} "
-        f"of their largest values")
+        if check and not rel <= tol:
+            raise AssertionError(f"{what}: gradient {name}: {rel} of its "
+                                 f"largest value > {tol}")
+    log(f"{what}: 512 rays, loss {la:.8f} (card) vs {lb:.8f} (cpu); "
+        f"loss terms {sorted(aux_a['loss_terms'])}; gradient leaves agree "
+        f"to {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
+        f" of their largest values")
+    return worst
+
+
+def reference_spread(seeds=range(5, 11)):
+    """`reference_step` of phase "train reference" and of phase
+    "features" (gate open, and closed with the random background behind
+    the rays) at each batch seed, unchecked: one line per step with its
+    four worst leaves (`--reference-spread`; the checks use seed 5)."""
+    small = dict(SMALL, batch_size=512, samples_per_ray=16)
+    feat = bench_hparams(**small, **FEATURES, use_exposure=True)
+    for what, h, step in (
+            ("train", bench_hparams(**small), 0),
+            ("features, gate open", feat, 256),
+            ("features, gate closed", feat, 0)):
+        for seed in seeds:
+            worst = reference_step(f"spread {what}, batch seed {seed}", h,
+                                   step, 0.5 if h is feat else None, seed,
+                                   check=False)
+            top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+            log(f"spread [{what}, batch seed {seed}]: worst leaves "
+                f"{json.dumps({k: float(f'{v:.3g}') for k, v in top})}")
 
 
 # the JAX CLI's test PSNR on configs/synthetic_smoke.txt (`python -m
@@ -1972,11 +2178,12 @@ def phase_profile(system, ds, train_system):
     log(f"  prof train step: device ms by part {summary}")
 
 
-def kernel_rows(render_errs, train_checks, quality_checks, launches, probes,
+def kernel_rows(render_errs, train_checks, other_checks, launches, probes,
                 probe_launches):
     """The kernels line: each kernel's launches in the timed training
     steps, its largest error over every variant checked (render,
-    training and the quality gate), and the time and bound of its
+    training, the features phase and the quality gate: other_checks,
+    {kernel: {variant: numbers}}), and the time and bound of its
     PRIMARY training variant (K2 bwd's on step LATE_STEP's launch);
     then each probe kernel, its launches in the probes phase (per
     training step: 0), its largest error over its variants and the
@@ -1986,7 +2193,7 @@ def kernel_rows(render_errs, train_checks, quality_checks, launches, probes,
         checks = train_checks[name]
         err = max([c["max_abs_err"] for c in checks.values()]
                   + [c["max_abs_err"]
-                     for c in quality_checks.get(name, {}).values()]
+                     for c in other_checks.get(name, {}).values()]
                   + [render_errs.get(name, 0.0)])
         p = checks.get(f"step {LATE_STEP}, {PRIMARY[name]}",
                        checks[PRIMARY[name]])
@@ -2024,11 +2231,16 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     name, count, smi = phase_device()
     phase_build()
+    if "--reference-spread" in argv:
+        reference_spread()
+        return 0
     system, ds, recs, plan = phase_render(bench_hparams())
     render_errs = phase_kernels(recs, plan, system.model_cfg)
     del recs, plan
     phase_reference()
-    train_system, train_checks, launches = phase_train(bench_hparams())
+    train_system, train_checks, launches, train_stats = phase_train(
+        bench_hparams())
+    feature_checks = phase_features(train_stats)
     phase_train_reference()
     probes, probe_launches = phase_probes()
     phase_cli()
@@ -2036,8 +2248,10 @@ def main(argv):
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
+    other_checks = {k: {**quality_checks.get(k, {}),
+                        **feature_checks.get(k, {})} for k in KERNELS}
     print(json.dumps({"kernels": kernel_rows(render_errs, train_checks,
-                                             quality_checks, launches,
+                                             other_checks, launches,
                                              probes, probe_launches)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""Ray geometry (counterpart of ingp_tpu/core/rays.py:22,56)."""
+"""Ray geometry (counterpart of ingp_tpu/core/rays.py:22,56,77)."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,3 +29,22 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
         rays_d = torch.einsum("nc,nbc->nb", directions, c2w[..., :3])
         rays_o = c2w[..., 3].expand_as(rays_d)
     return rays_o, rays_d
+
+
+def axisangle_to_R(v):
+    """Rodrigues axis-angle -> rotation matrix, (B, 3) -> (B, 3, 3) (or
+    (3,) -> (3, 3)); differentiable, with the +1e-7 norm guard and the
+    sqrt(|v|^2 + 1e-14) norm that keeps the gradient finite at v = 0."""
+    squeeze = v.ndim == 1
+    if squeeze:
+        v = v[None]
+    zero = torch.zeros_like(v[:, :1])
+    skew = torch.stack([
+        torch.cat([zero, -v[:, 2:3], v[:, 1:2]], 1),
+        torch.cat([v[:, 2:3], zero, -v[:, 0:1]], 1),
+        torch.cat([-v[:, 1:2], v[:, 0:1], zero], 1)], 1)
+    norm = torch.sqrt((v * v).sum(1) + 1e-14)[:, None, None] + 1e-7
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)
+    R = eye + (torch.sin(norm) / norm) * skew \
+        + ((1 - torch.cos(norm)) / norm ** 2) * (skew @ skew)
+    return R[0] if squeeze else R

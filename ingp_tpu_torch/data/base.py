@@ -59,11 +59,17 @@ class BaseDataset:
         return sample
 
     def test_item(self, idx):
-        """Whole-image sample for evaluation."""
+        """Whole-image sample for evaluation: pose, img_idxs, and rgb,
+        label, depth and the image's exposure (its first pixel's) where
+        the dataset has them (ingp_tpu/data/base.py:74-86)."""
         sample = {"pose": self.poses[idx], "img_idxs": idx}
         if len(self.rays) > 0:
             rays = self.rays[idx]
             sample["rgb"] = rays[:, :3]
             if hasattr(self, "labels"):
                 sample["label"] = self.labels[idx]
+            if hasattr(self, "depths_2d"):
+                sample["depth"] = self.depths_2d[idx]
+            if rays.shape[1] == 4:
+                sample["exposure"] = rays[0, 3]
         return sample

@@ -1,5 +1,5 @@
 """The NGP radiance field on the brick and hash encoders (counterpart of
-ingp_tpu/models/ngp.py, forward).
+ingp_tpu/models/ngp.py).
 
 Parameters are a plain tree of tensors with the JAX package's structure:
 
@@ -8,16 +8,19 @@ Parameters are a plain tree of tensors with the JAX package's structure:
                      (total_rows, F), f32,
     "rgb_table":     the same for the colour features,
     "xyz_net":  MLP L*F -> 128 -> 1 (softplus hidden),
-    "rgb_net":  MLP (16 + L*F) -> 128 -> 3,
+    "rgb_net":  MLP (16 + L*F [+ embed_a_len]) -> 128 -> 3,
     "norm_net": MLP L*F -> 32 -> 3,
     "sem_net":  MLP L*F -> 32 -> classes,
+    ["skybox_net"]: MLP 9 -> 32 -> 3 (use_skybox),
+    ["tonemapper_r/g/b"]: MLP 1 -> 64 -> 1 (rgb_act "none", HDR),
   }
 
 `params_from_numpy` / `params_to_numpy` carry an `ngp_init` pytree of
 the JAX package across: the brick tables keep the stored row layout,
 the MLP layers the `mlp_init` order, and the hash tables, which the JAX
 package keeps feature-major (F, total_rows), are transposed to the
-port's row-major (total_rows, F) and back (`hash_layout`).
+port's row-major (total_rows, F) and back (`hash_layout`; also the
+transient mask's table, models/implicit_mask.py).
 
 The density MLP's vector-Jacobian product (for the density gradient
 that gives the raw normals) is written out by hand: softplus' = sigmoid
@@ -39,9 +42,10 @@ from ..ops.brickgrid import (BrickGridConfig, brickgrid_encode,
 from ..ops.gather import to_torch_dtype
 from ..ops.hashgrid import (HashGridConfig, hashgrid_encode,
                             hashgrid_encode_grad, hashgrid_init)
-from ..ops.sh import sh_encode_cm
+from ..ops.activations import trunc_exp
+from ..ops.sh import sh_encode, sh_encode_cm
 from ..ops.streambrick import streambrick_encode, streambrick_encode_grad
-from .mlp import _ACTS, dot, mlp_apply_cm, mlp_init, round_to
+from .mlp import dot, mlp_apply, mlp_apply_cm, mlp_init, round_to
 
 
 def per_level_scale_for(scene_scale: float, n_levels: int = 16,
@@ -58,8 +62,7 @@ class NGPConfig:
     NGPConfig except encode_remat (a JAX rematerialisation policy) and
     stream_seg_head / stream_head_frac / stream_caps (tile caps of the
     training step's sorted stream; the test render's stream is
-    unsorted). The port runs encoder="brick" or "hash" with
-    rgb_act="sigmoid" and no skybox / appearance embedding."""
+    unsorted). The port runs encoder="brick" or "hash"."""
     scale: float = 0.5
     rgb_act: str = "sigmoid"
     use_skybox: bool = False
@@ -137,10 +140,6 @@ def _check_supported(cfg: NGPConfig):
         raise NotImplementedError(
             f"encoder {cfg.encoder!r} is not ported yet (brick and hash "
             f"only)")
-    if cfg.use_skybox or cfg.embed_a or cfg.rgb_act != "sigmoid":
-        raise NotImplementedError(
-            "skybox, appearance embeddings and HDR tonemapping are not "
-            "ported yet")
 
 
 def ngp_init(cfg: NGPConfig, key, device=None):
@@ -157,7 +156,7 @@ def ngp_init(cfg: NGPConfig, key, device=None):
     else:
         init, dcfg, rcfg = (brickgrid_init, cfg.density_brick_cfg,
                             cfg.rgb_brick_cfg)
-    return {
+    params = {
         "density_table": init(dcfg, keys[0], device),
         "xyz_net": mlp_init((LFd, 128, 1), keys[1], device),
         "rgb_table": init(rcfg, keys[2], device),
@@ -165,48 +164,66 @@ def ngp_init(cfg: NGPConfig, key, device=None):
         "norm_net": mlp_init((LFr, 32, 3), keys[4], device),
         "sem_net": mlp_init((LFr, 32, cfg.classes), keys[5], device),
     }
+    if cfg.use_skybox:
+        params["skybox_net"] = mlp_init((cfg.skybox_sh_degree ** 2, 32, 3),
+                                        keys[6], device)
+    if cfg.rgb_act == "none":
+        for i, ch in enumerate("rgb"):
+            params[f"tonemapper_{ch}"] = mlp_init((1, 64, 1), keys[7 + i],
+                                                  device)
+    return params
 
 
 HASH_TABLES = ("density_table", "rgb_table")
+MASK_TABLE = ("msk", "table")
 
 
 def hash_layout(tree, cfg: NGPConfig | None):
-    """tree with its hash tables (the HASH_TABLES leaves, at any depth)
-    transposed between the JAX package's (F, total_rows) and the port's
-    (total_rows, F) layout, when cfg's encoder is "hash"; the same tree
-    otherwise. Its own inverse, for params and for Adam moments alike."""
-    if cfg is None or cfg.encoder != "hash":
-        return tree
+    """tree with its hash tables transposed between the JAX package's
+    (F, total_rows) and the port's (total_rows, F) layout: the
+    HASH_TABLES leaves, at any depth, when cfg's encoder is "hash", and
+    the transient mask's table (the "table" leaf of a "msk" subtree)
+    whatever cfg says. Its own inverse, for params and for Adam moments
+    alike."""
+    model_hash = cfg is not None and cfg.encoder == "hash"
 
-    def walk(t, key=None):
+    def walk(t, path=()):
         if isinstance(t, dict):
-            return {k: walk(v, k) for k, v in t.items()}
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
-            return [walk(v) for v in t]
-        return t.T if key in HASH_TABLES else t
+            return [walk(v, path + (i,)) for i, v in enumerate(t)]
+        if path[-2:] == MASK_TABLE or (model_hash and path
+                                       and path[-1] in HASH_TABLES):
+            return t.T
+        return t
     return walk(tree)
+
+
+def tree_map(fn, tree):
+    """fn on every leaf of a nested dict / list tree (tuples become
+    lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def params_from_numpy(tree, device=None, cfg: NGPConfig | None = None):
     """ingp_tpu `ngp_init` pytree (numpy leaves) -> the port's tree (hash
-    tables transposed where cfg says the encoder is "hash")."""
-    tree = hash_layout(tree, cfg)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device) for v in tree]
-    return torch.as_tensor(np.array(tree, order="C"), device=device)
+    tables transposed where cfg says the encoder is "hash", the mask's
+    table always)."""
+    return tree_map(
+        lambda a: torch.as_tensor(np.array(a, order="C"), device=device),
+        hash_layout(tree, cfg))
 
 
 def params_to_numpy(tree, cfg: NGPConfig | None = None):
     """Inverse of params_from_numpy: copies, which later in-place
     updates of the tensors (the optimiser's) leave as they are."""
-    tree = hash_layout(tree, cfg)
-    if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_to_numpy(v) for v in tree]
-    return np.array(tree.detach().cpu().numpy(), order="C")
+    return tree_map(
+        lambda t: np.array(t.detach().cpu().numpy(), order="C"),
+        hash_layout(tree, cfg))
 
 
 def _normalize_coords(cfg: NGPConfig, x):
@@ -314,43 +331,112 @@ def _safe_normalize(v, eps=1e-6, axis=-1):
     return v32 * torch.rsqrt((v32 * v32).sum(axis, keepdim=True) + eps * eps)
 
 
-def _rgb_net_cm(cfg: NGPConfig, params, dsh_cm, feat):
+def ngp_grad(cfg: NGPConfig, params, x):
+    """Row-major ngp_grad_cm: x (N, 3) -> (sigmas (N,), feat_rgb
+    (N, L*F), d sigma/dx (N, 3))."""
+    sigmas, feat_rgb, grads = ngp_grad_cm(cfg, params, x.T)
+    return sigmas, feat_rgb, grads.T
+
+
+def ngp_rgb_feat(cfg: NGPConfig, params, x):
+    """RGB table features (N, L*F) at world coords x (N, 3)."""
+    _check_supported(cfg)
+    return _encode(cfg, "rgb", params["rgb_table"],
+                   _normalize_coords(cfg, x.T), False)
+
+
+def ngp_density(cfg: NGPConfig, params, x, return_feat=False):
+    """sigma (N,) at x (N, 3), with the rgb features when return_feat."""
+    sigmas = ngp_sigma(cfg, params, x)
+    if return_feat:
+        return sigmas, ngp_rgb_feat(cfg, params, x)
+    return sigmas
+
+
+def log_radiance_to_rgb(cfg: NGPConfig, params, log_radiances,
+                        exposure=None):
+    """HDR tonemapping: per channel, a 64-unit MLP (relu, sigmoid out) on
+    log-radiance (N, 3) + log exposure ((N, 1) or broadcastable; none:
+    0) -> rgb (N, 3), in the compute dtype."""
+    log_exp = torch.log(exposure) if exposure is not None else 0.0
+    return torch.cat([mlp_apply(params[f"tonemapper_{ch}"],
+                                log_radiances[:, i:i + 1] + log_exp,
+                                "relu", "sigmoid", cfg.dtype)
+                      for i, ch in enumerate("rgb")], 1)
+
+
+def _rgb_net_cm(cfg: NGPConfig, params, dsh_cm, feat, embedding_a,
+                out_act):
     """rgb_net with its first layer split into the SH block (channel-
-    major (16, N) input) and the feature block ((N, L*F) input).
-    Returns (3, N)."""
+    major (16, N) input), the feature block ((N, L*F) input) and, with
+    embed_a, the appearance block ((N, embed_a_len) input), each in the
+    compute dtype with f32 sums. Returns (3, N)."""
     layers = params["rgb_net"]
     cd = cfg.dtype
     d2 = cfg.sh_degree ** 2
     lf = cfg.rgb_L * cfg.rgb_F
     w1 = layers[0]["w"]
     h = dot(dsh_cm.T, w1[:d2], cd) + dot(feat, w1[d2:d2 + lf], cd)
+    if cfg.embed_a:
+        h = h + dot(embedding_a, w1[d2 + lf:], cd)
     h = torch.relu(h + layers[0]["b"].float())
-    out = h
-    for i, lyr in enumerate(layers[1:]):
-        out = dot(out, lyr["w"], cd) + lyr["b"].float()
-        out = torch.relu(out) if i < len(layers) - 2 else \
-            _ACTS["sigmoid" if cfg.rgb_act == "sigmoid" else "none"](out)
-    return out.T
+    return mlp_apply(layers[1:], h, "relu", out_act, cd).T
 
 
-def _forward_heads(cfg: NGPConfig, params, sigmas, feat_rgb, grads, d_cm):
-    """Normal, semantic and rgb heads on the density/encode front half."""
+def _forward_heads(cfg: NGPConfig, params, sigmas, feat_rgb, grads, d_cm,
+                   embedding_a=None, exposure=None, output_radiance=False,
+                   stop_header_grads=False):
+    """Normal, semantic and rgb heads on the density/encode front half.
+    With rgb_act "none" the rgb head gives log radiance, returned as
+    radiance (trunc_exp) with output_radiance, else tonemapped at the
+    per-sample exposure."""
     cd = cfg.dtype
     normals_raw = -_safe_normalize(grads, axis=0)
+    feat_h = feat_rgb.detach() if stop_header_grads else feat_rgb
     normals_pred = -_safe_normalize(
-        mlp_apply_cm(params["norm_net"], feat_rgb, "relu", "none", cd),
+        mlp_apply_cm(params["norm_net"], feat_h, "relu", "none", cd),
         axis=0)
     semantic = torch.softmax(
-        mlp_apply_cm(params["sem_net"], feat_rgb, "relu", "none", cd), 0)
+        mlp_apply_cm(params["sem_net"], feat_h, "relu", "none", cd), 0)
     dsh_cm = sh_encode_cm(_safe_normalize(d_cm, axis=0), cfg.sh_degree)
-    rgbs = _rgb_net_cm(cfg, params, dsh_cm, feat_rgb)
+    out_act = "sigmoid" if cfg.rgb_act == "sigmoid" else "none"
+    rgbs = _rgb_net_cm(cfg, params, dsh_cm, feat_rgb, embedding_a, out_act)
+    if cfg.rgb_act == "none":
+        rgbs = trunc_exp(rgbs) if output_radiance else \
+            log_radiance_to_rgb(cfg, params, rgbs.T, exposure).T
     return sigmas, rgbs, normals_raw, normals_pred, semantic
 
 
-def ngp_forward_cm(cfg: NGPConfig, params, x_cm, d_cm, stream=False):
-    """Full per-sample forward, channel-major: x_cm, d_cm (3, N) ->
-    (sigmas (N,), rgbs (3, N), normals_raw (3, N), normals_pred (3, N),
-    semantic (classes, N))."""
+def ngp_forward_cm(cfg: NGPConfig, params, x_cm, d_cm, embedding_a=None,
+                   exposure=None, output_radiance=False,
+                   stop_header_grads=False, stream=False):
+    """Full per-sample forward, channel-major: x_cm, d_cm (3, N), the
+    appearance codes embedding_a (N, embed_a_len) and the exposure
+    (N, 1) per sample -> (sigmas (N,), rgbs (3, N), normals_raw (3, N),
+    normals_pred (3, N), semantic (classes, N)). stop_header_grads
+    detaches the normal and semantic heads' input features."""
     sigmas, feat_rgb, grads = ngp_grad_cm(cfg, params, x_cm, stream=stream)
-    return _forward_heads(cfg, params, sigmas, feat_rgb, grads, d_cm)
+    return _forward_heads(cfg, params, sigmas, feat_rgb, grads, d_cm,
+                          embedding_a, exposure, output_radiance,
+                          stop_header_grads)
 
+
+def ngp_forward(cfg: NGPConfig, params, x, d, embedding_a=None,
+                exposure=None, output_radiance=False,
+                stop_header_grads=False):
+    """Row-major ngp_forward_cm: x, d (N, 3) -> per-sample (N, C)
+    outputs (sigmas (N,))."""
+    sigmas, rgbs, nraw, npred, sem = ngp_forward_cm(
+        cfg, params, x.T, d.T, embedding_a=embedding_a, exposure=exposure,
+        output_radiance=output_radiance,
+        stop_header_grads=stop_header_grads)
+    return sigmas, rgbs.T, nraw.T, npred.T, sem.T
+
+
+def ngp_forward_skybox(cfg: NGPConfig, params, d):
+    """Skybox colour (N, 3) of view directions d (N, 3): SH of degree
+    skybox_sh_degree through skybox_net (sigmoid out, or none with
+    rgb_act "none"), in the compute dtype."""
+    dsh = sh_encode(_safe_normalize(d), cfg.skybox_sh_degree)
+    out_act = "sigmoid" if cfg.rgb_act == "sigmoid" else "none"
+    return mlp_apply(params["skybox_net"], dsh, "relu", out_act, cfg.dtype)

@@ -2,14 +2,24 @@
 
 Training (`render_rays`, :130-317): intersect -> march -> global sample
 budget -> kept-count ray sort -> compaction -> full forward (stream
-encoder) -> scatter back -> composite (K3) -> Ref-NeRF composites and
-distortion -> inverse permute. Differentiable w.r.t. the parameters.
+encoder; the per-ray appearance codes follow the sort and the compaction
+to the samples) -> scatter back -> composite (K3) -> Ref-NeRF composites
+and distortion -> inverse permute -> background (`_finish_render`,
+:81-93: a fixed or random colour, or the skybox behind its gate, in the
+caller's ray order). Differentiable w.r.t. the parameters.
 
-Test (`render_rays_test`, :320-425): intersect -> march -> sigma prepass
--> visibility cut -> full forward -> composite, without gradients. The
-reference's alive-ray early exit becomes a cheap sigma-only prepass over
-every occupied sample; only samples with transmittance above
-T_threshold are compacted into the full network batch.
+Test (`render_rays_test`, :320-427): intersect -> march -> sigma prepass
+-> visibility cut -> full forward -> composite -> skybox background,
+without gradients. The reference's alive-ray early exit becomes a cheap
+sigma-only prepass over every occupied sample; only samples with
+transmittance above T_threshold are compacted into the full network
+batch.
+
+A per-ray exposure (R, 1) is refused: the JAX renderer hands it to the
+per-sample forward, where its log is added to (K, 1) log radiance, and
+that fails to broadcast unless R == K (ingp_tpu/models/rendering.py:219,
+ingp_tpu/models/ngp.py:424-427). A single exposure (one element) is
+passed through, as JAX broadcasts it.
 """
 from __future__ import annotations
 
@@ -23,7 +33,8 @@ from ..ops.composite import (composite_rays, distortion_loss, ref_loss,
 from ..ops.march import MarchConfig, march_rays_block, march_rays_lattice
 from ..ops.pack import (compact_samples, gather_samples, ray_ids_for,
                         scatter_back, scatter_back_cm)
-from .ngp import NGPConfig, ngp_forward_cm, ngp_sigma_cm
+from .ngp import (NGPConfig, ngp_forward_cm, ngp_forward_skybox,
+                  ngp_sigma_cm)
 
 MAX_SAMPLES = 1024
 NEAR_DISTANCE = 0.01
@@ -34,9 +45,11 @@ class RenderConfig:
     """Rendering parameters: the fields of ingp_tpu's RenderConfig that
     the port reads. The port always composites through kernel K3 (no
     pallas_composite) and, in training, always orders rays by kept count
-    (ingp_tpu's stream_sort=True, bench.py's default); random_bg,
-    stop_header_grads and run_stats (cap auto-calibration) are not
-    ported."""
+    (ingp_tpu's stream_sort=True, bench.py's default); random_bg and
+    stop_header_grads stay out (the trainer reads hparams.random_bg and
+    draws the background; training never stops the heads' gradients and
+    the test render always does) and run_stats (cap auto-calibration)
+    is not ported."""
     exp_step_factor: float = 0.0
     T_threshold: float = 1e-4
     max_samples: int = MAX_SAMPLES
@@ -69,6 +82,34 @@ def _inv_permute_results(results, inv):
     return {k: v[inv] for k, v in results.items()}
 
 
+def _check_exposure(exposure):
+    if exposure is not None and exposure.numel() != 1:
+        raise NotImplementedError(
+            f"a per-ray exposure {tuple(exposure.shape)}: the JAX renderer "
+            f"adds its log to per-sample log radiance, which fails to "
+            f"broadcast (ingp_tpu/models/rendering.py:219, "
+            f"ingp_tpu/models/ngp.py:424-427), so the port has no "
+            f"reference to hold it to")
+
+
+def _finish_render(model_cfg, render_cfg, params, results, rays_d,
+                   bg_color, skybox_gate):
+    """Background in the caller's ray order: rgb + bg (1 - opacity), bg
+    the colour bg_color (3,) (none: black), or with the skybox
+    gate * sky(rays_d) + (1 - gate) * that colour."""
+    R = rays_d.shape[0]
+    base_bg = bg_color.expand(R, 3) if bg_color is not None else \
+        torch.zeros((R, 3), device=rays_d.device)
+    if render_cfg.use_skybox:
+        sky = ngp_forward_skybox(model_cfg, params, rays_d)
+        rgb_bg = skybox_gate * sky + (1.0 - skybox_gate) * base_bg
+    else:
+        rgb_bg = base_bg
+    results["rgb"] = results["rgb"] \
+        + rgb_bg * (1.0 - results["opacity"][:, None])
+    return results
+
+
 def clamp_near(hits_t):
     """Push entry points below NEAR_DISTANCE out to it."""
     t1 = hits_t[:, 0]
@@ -91,16 +132,24 @@ def _march(model_cfg, render_cfg, bitfield, rays_o, rays_d, noise,
 
 
 def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
-                bitfield, rays_o, rays_d, noise, block_table=None):
+                bitfield, rays_o, rays_d, noise, embedding_a=None,
+                exposure=None, bg_color=None, skybox_gate=1.0,
+                block_table=None):
     """Training render of (R, 3) rays with start jitter noise (R,) in
-    [0, 1); differentiable w.r.t. params.
+    [0, 1); differentiable w.r.t. params (and embedding_a).
+
+    embedding_a: (R, embed_a_len) per-ray appearance codes, or None.
+    exposure: one exposure (a one-element tensor) or None; a per-ray
+      exposure raises (see the module's docstring).
+    bg_color: (3,) background colour, or None for black.
+    skybox_gate: 0 or 1 (a float or a 0-d tensor); with use_skybox the
+      background is gate * skybox + (1 - gate) * bg_color.
 
     Returns the per-ray results of ingp_tpu's render_rays (rgb, depth,
     opacity, normal_pred/raw, semantic, vr_samples, ws/ts/deltas/valid/
     sigmas (R, S) for the losses, Ro, Rp, distortion) and total_samples.
-    The background is zero (no skybox, no random background)."""
-    if render_cfg.use_skybox:
-        raise NotImplementedError("the skybox is not ported yet")
+    """
+    _check_exposure(exposure)
     R = rays_o.shape[0]
     S = render_cfg.capacity
     K = R * render_cfg.samples_per_ray
@@ -126,8 +175,10 @@ def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
     t_k = gather_samples(ts, plan)
     dir_cm = d_cm[:, rids]
     xyz_cm = o_cm[:, rids] + t_k[None] * dir_cm
+    emb_k = embedding_a[perm][rids] if embedding_a is not None else None
     sig_k, rgbs_cm, nraw_cm, npred_cm, sems_cm = ngp_forward_cm(
-        model_cfg, params, xyz_cm, dir_cm, stream=True)
+        model_cfg, params, xyz_cm, dir_cm, embedding_a=emb_k,
+        exposure=exposure, stream=True)
     sig_k = torch.where(plan.slot_valid, sig_k, 0.0)
     sigmas = scatter_back(sig_k, plan)
     nraw = scatter_back_cm(nraw_cm, plan)
@@ -149,16 +200,23 @@ def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
                                             valid_k)
     results = _inv_permute_results(results, inv)
     results["total_samples"] = march["total_samples"]
-    return results
+    return _finish_render(model_cfg, render_cfg, params, results, rays_d,
+                          bg_color, skybox_gate)
 
 
 @torch.no_grad()
 def render_rays_test(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
-                     bitfield, rays_o, rays_d, block_table=None):
-    """Inference render of (R, 3) rays: normalised normals, argmax
-    semantics and hit points, as ingp_tpu's render_rays_test."""
+                     bitfield, rays_o, rays_d, embedding_a=None,
+                     exposure=None, block_table=None):
+    """Inference render of (R, 3) rays with per-ray appearance codes
+    embedding_a (R, embed_a_len) or None and one exposure or None:
+    normalised normals, argmax semantics and hit points, as ingp_tpu's
+    render_rays_test; with use_skybox the skybox fills the background,
+    else it is black."""
+    _check_exposure(exposure)
     res = _render_rays_test_inner(model_cfg, render_cfg, params, bitfield,
-                                  rays_o, rays_d, block_table)
+                                  rays_o, rays_d, embedding_a, exposure,
+                                  block_table)
 
     def norm(v):
         return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
@@ -178,9 +236,8 @@ def render_rays_test(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
 
 
 def _render_rays_test_inner(model_cfg, render_cfg, params, bitfield,
-                            rays_o, rays_d, block_table=None):
-    if render_cfg.use_skybox:
-        raise NotImplementedError("the skybox is not ported yet")
+                            rays_o, rays_d, embedding_a, exposure,
+                            block_table=None):
     R = rays_o.shape[0]
     K = R * render_cfg.samples_per_ray
     march = _march(model_cfg, render_cfg, bitfield, rays_o, rays_d,
@@ -210,8 +267,10 @@ def _render_rays_test_inner(model_cfg, render_cfg, params, bitfield,
     t_k2 = gather_samples(ts, plan2)
     dir2_cm = d_cm[:, rids2]
     xyz2_cm = o_cm[:, rids2] + t_k2[None] * dir2_cm
+    emb2 = embedding_a[rids2] if embedding_a is not None else None
     _, rgbs_cm, nraw_cm, npred_cm, sems_cm = ngp_forward_cm(
-        model_cfg, params, xyz2_cm, dir2_cm, stream=True)
+        model_cfg, params, xyz2_cm, dir2_cm, embedding_a=emb2,
+        exposure=exposure, stop_header_grads=True, stream=True)
     pad2 = ~plan2.slot_valid[None]
 
     def back(v):
@@ -222,5 +281,7 @@ def _render_rays_test_inner(model_cfg, render_cfg, params, bitfield,
                              normals_pred=back(npred_cm),
                              normals_raw=back(nraw_cm), sems=back(sems_cm))
     results["total_samples"] = march["total_samples"]
-    # zero background (the skybox is off): rgb + 0 * (1 - opacity)
+    if render_cfg.use_skybox:
+        results["rgb"] = results["rgb"] + ngp_forward_skybox(
+            model_cfg, params, rays_d) * (1.0 - results["opacity"][:, None])
     return results

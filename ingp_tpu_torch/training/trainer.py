@@ -1,9 +1,11 @@
 """Training system (counterpart of ingp_tpu/training/trainer.py): the
 hparams -> config mapping (:46-113), and `NeRFSystem` on one device --
 parameters, optimiser, occupancy grid, the training step (:233-406) with
-the sparsity prior (:279-295), the grid refresh cadence, `render_image`
-(:584-658), `validate` (:660-707), the training loop `fit` (:709-834)
-and the checkpoint state (:864-935).
+the sparsity prior (:279-295), the model features (appearance
+embeddings, the transient mask, the random background, the skybox behind
+its warmup gate, the HDR unit-exposure anchor; :261-315), the grid
+refresh cadence, `render_image` (:584-658), `validate` (:660-707), the
+training loop `fit` (:709-834) and the checkpoint state (:864-935).
 
 The step is eager PyTorch: render_rays, the losses, autograd (the
 encoders' and the composite's backward are kernels K1, K2 and K3 bwd),
@@ -12,7 +14,8 @@ eps 1e-8) written out: the clip by hand (optax scales by 50/|g| only
 when |g| >= 50, with no epsilon), torch.optim.Adam for the moments, and
 the learning rate of update t computed from t, the count of updates
 before it. The shard_map path, the cap auto-calibration, the native
-batch loader and the validation image dumps are not ported.
+batch loader, the validation image dumps and pose refinement
+(`optimize_ext`) are not ported.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ from ..core.rays import get_rays
 from ..device import resolve_device
 from ..grid.occupancy import (grid_draws, grid_init, mark_invisible_cells,
                               update_density_grid)
-from ..models.ngp import (NGPConfig, hash_layout, ngp_init, ngp_sigma,
-                          ngp_sigma_cm, params_from_numpy, params_to_numpy)
+from ..models.implicit_mask import mask_apply, mask_init
+from ..models.ngp import (NGPConfig, hash_layout, log_radiance_to_rgb,
+                          ngp_init, ngp_sigma, ngp_sigma_cm,
+                          params_from_numpy, params_to_numpy, tree_map)
 from ..models.rendering import (MAX_SAMPLES, RenderConfig, render_rays,
                                 render_rays_test)
 from ..ops.march import build_block_table
@@ -128,18 +133,9 @@ def tree_leaves(tree, prefix=()):
     return [(prefix, tree)]
 
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _check_ported(h):
     """Raise on training features the port does not have yet."""
-    off = [k for k in ("embed_msk", "optimize_ext", "random_bg")
-           if getattr(h, k, False)]
+    off = [k for k in ("optimize_ext",) if getattr(h, k, False)]
     if getattr(h, "stream_head_frac", 0.0) > 0:
         off.append("stream_head_frac")
     if not getattr(h, "stream_sort", True):
@@ -187,16 +183,17 @@ class NeRFSystem:
         PRNGKey(step), so one seed gives the JAX system's draws (default:
         `hparams.seed`, or 0 where the namespace has none).
       params: optional numpy tree {"model": ngp_init tree, "embedding_a":
-        (N_images, embed_a_len)} (the JAX system's `params`, in its
-        layouts) to start from.
+        (N_images, embed_a_len)[, "msk": mask_init tree]} (the JAX
+        system's `params`, in its layouts) to start from.
     """
 
     WARMUP_STEPS = 256
     UPDATE_INTERVAL = 16
-    BATCH_KEYS = ("img_idxs", "pix_idxs", "rgb", "label", "depth",
-                  "normal")
-    # the step's injected draws: the ray jitter and the prior's points
-    DRAW_KEYS = ("noise", "sparsity_points")
+    BATCH_KEYS = ("img_idxs", "pix_idxs", "uv", "rgb", "label", "depth",
+                  "normal", "exposure")
+    # the step's injected draws: the ray jitter, the prior's points and
+    # the random background colour
+    DRAW_KEYS = ("noise", "sparsity_points", "bg_color")
 
     def __init__(self, hparams, train_dataset=None, test_dataset=None,
                  device=None, seed=None, params=None):
@@ -216,7 +213,7 @@ class NeRFSystem:
             hparams, "ray_sampling_strategy", "all_images")
         if seed is None:
             seed = getattr(hparams, "seed", 0)
-        k_model, k_emb, _ = prng.split(prng.prng_key(seed), 3)
+        k_model, k_emb, k_msk = prng.split(prng.prng_key(seed), 3)
         self.base_key = prng.prng_key(seed + 1)
         if params is None:
             params = {
@@ -225,6 +222,8 @@ class NeRFSystem:
                     k_emb, (train_dataset.n_images, hparams.embed_a_len),
                     dev),
             }
+            if hparams.embed_msk:
+                params["msk"] = mask_init(k_msk, dev)
         else:
             params = params_from_numpy(params, dev, self.model_cfg)
         self.params = tree_map(lambda t: t.float().requires_grad_(), params)
@@ -258,41 +257,78 @@ class NeRFSystem:
     def step_draws(self, n: int, step=None):
         """Training step `step`'s draws (default: this step's), JAX's from
         fold_in(PRNGKey(seed + 1), step), hashed on the host: "noise", the
-        ray jitter (n,) uniform in [0, 1), and with a sparsity prior
-        "sparsity_points" (SPARSITY_POINTS, 3) uniform in [-scale,
-        scale]^3. CPU tensors; `stage_batch` copies them to the device."""
+        ray jitter (n,) uniform in [0, 1), from the first key of its
+        split; with random_bg "bg_color" (3,) uniform in [0, 1), from the
+        second; and with a sparsity prior "sparsity_points"
+        (SPARSITY_POINTS, 3) uniform in [-scale, scale]^3. CPU tensors;
+        `stage_batch` copies them to the device."""
         key = prng.fold_in(self.base_key,
                            self.global_step if step is None else step)
-        out = {"noise": prng.uniform(prng.split(key)[0], (n,))}
+        k_noise, k_bg = prng.split(key)
+        out = {"noise": prng.uniform(k_noise, (n,))}
+        if self.hparams.random_bg:
+            out["bg_color"] = prng.uniform(k_bg, (3,))
         if self.loss_cfg.lambda_sparsity > 0:
             s = self.model_cfg.scale
             out["sparsity_points"] = prng.uniform(
                 prng.fold_in(key, 7), (SPARSITY_POINTS, 3), -s, s)
         return out
 
-    def loss_and_grads(self, batch, noise, sparsity_points=None):
+    def loss_and_grads(self, batch, noise, sparsity_points=None,
+                       bg_color=None):
         """(aux, grads) of one batch on the current grid: aux as
         `train_step` returns it, grads a tree like params (zeros for
         leaves the loss does not reach). With a sparsity prior
         (lambda_sparsity > 0), its density is taken at sparsity_points
-        (N, 3), or at this step's draw."""
+        (N, 3), and with random_bg the background is bg_color (3,); each
+        where not given is this step's draw. The skybox's gate is open
+        from step WARMUP_STEPS on."""
+        h = self.hparams
+        p = self.params
         b = {k: self._on_device(v) for k, v in batch.items()
              if k in self.BATCH_KEYS}
+        img = b["img_idxs"].long()
         rays_o, rays_d = get_rays(self.directions[b["pix_idxs"].long()],
-                                  self.poses[b["img_idxs"].long()])
-        results = render_rays(self.model_cfg, self.render_cfg,
-                              self.params["model"], self.grid["bitfield"],
-                              rays_o.contiguous(), rays_d.contiguous(),
-                              self._on_device(noise),
-                              block_table=self.grid["block_table"])
+                                  self.poses[img])
+        draws = None
+        if (h.random_bg and bg_color is None) or (
+                self.loss_cfg.lambda_sparsity > 0 and sparsity_points is None):
+            draws = self.stage_batch(self.step_draws(0))
+        if h.random_bg:
+            bg_color = self._on_device(bg_color) if bg_color is not None \
+                else draws["bg_color"]
+        results = render_rays(
+            self.model_cfg, self.render_cfg, p["model"],
+            self.grid["bitfield"], rays_o.contiguous(), rays_d.contiguous(),
+            self._on_device(noise),
+            embedding_a=p["embedding_a"][img] if h.embed_a else None,
+            exposure=b.get("exposure"),
+            bg_color=bg_color if h.random_bg else None,
+            skybox_gate=float(self.global_step >= self.WARMUP_STEPS),
+            block_table=self.grid["block_table"])
         if self.loss_cfg.lambda_sparsity > 0:
             pts = self._on_device(sparsity_points) \
-                if sparsity_points is not None \
-                else self.stage_batch(self.step_draws(0))["sparsity_points"]
-            results["sparsity"] = ngp_sigma(self.model_cfg,
-                                            self.params["model"], pts)
+                if sparsity_points is not None else draws["sparsity_points"]
+            results["sparsity"] = ngp_sigma(self.model_cfg, p["model"], pts)
+        mask = None
+        if h.embed_msk:
+            # (u, v, image) scaled into [0, 1], as the JAX step feeds it
+            w, hh = self.train_dataset.img_wh
+            uv = b["uv"]
+            mask = mask_apply(p["msk"], torch.stack(
+                [uv[:, 0] / hh, uv[:, 1] / w,
+                 b["img_idxs"].float() / self.train_dataset.n_images], -1))
         loss_d = compute_losses(self.loss_cfg, results, b,
-                                step=self.global_step)
+                                step=self.global_step, mask=mask)
+        unit_rgb = getattr(self.train_dataset, "unit_exposure_rgb", None)
+        if h.use_exposure and unit_rgb is not None:
+            # the HDR anchor: unit exposure of zero log radiance
+            out = log_radiance_to_rgb(
+                self.model_cfg, p["model"],
+                torch.zeros((1, 3), device=self.device),
+                exposure=torch.ones((1, 1), device=self.device))
+            loss_d["unit_exposure"] = 0.5 * (
+                out - self._on_device(unit_rgb).float()) ** 2
         loss = total_loss(loss_d)
         leaves = [t for _, t in tree_leaves(self.params)]
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -310,14 +346,16 @@ class NeRFSystem:
 
     def train_step(self, batch):
         """One optimisation step on the current grid (no grid refresh),
-        with the ray jitter batch["noise"] and the prior's points
-        batch["sparsity_points"] or, without them, this step's draws.
+        with the ray jitter batch["noise"], the prior's points
+        batch["sparsity_points"] and the background batch["bg_color"] or,
+        without them, this step's draws.
         Returns aux (loss, psnr, s_per_ray, loss_terms)."""
         if "noise" not in batch:
             batch = {**self.stage_batch(self.step_draws(
                 len(batch["pix_idxs"]))), **batch}
         aux, grads = self.loss_and_grads(batch, batch["noise"],
-                                         batch.get("sparsity_points"))
+                                         batch.get("sparsity_points"),
+                                         batch.get("bg_color"))
         gl = clip_by_global_norm([g for _, g in tree_leaves(grads)])
         for (_, p), g in zip(tree_leaves(self.params), gl):
             p.grad = g
@@ -448,16 +486,24 @@ class NeRFSystem:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def render_image(self, pose, chunk_size=None):
+    def render_image(self, pose, chunk_size=None, embedding=None):
         """Chunked whole-image test render. The chunk is capped so that
         chunk * samples_per_ray <= 1.5M network samples; a tail chunk
-        pads up to the full chunk by repeating its last ray."""
+        pads up to the full chunk by repeating its last ray. With
+        embed_a every ray takes the appearance code `embedding`
+        ((1, embed_a_len) or (embed_a_len,); default: image 0's)."""
         chunk = chunk_size or self.hparams.chunk_size
         spr = max(self.render_cfg_test.samples_per_ray, 1)
         chunk = min(chunk, max(1_500_000 // spr, 4096))
         pose = torch.as_tensor(np.asarray(pose), device=self.device)
         rays_o, rays_d = get_rays(self.directions, pose)
         n = rays_o.shape[0]
+        emb = None
+        if self.hparams.embed_a:
+            if embedding is None:
+                embedding = self.params["embedding_a"][0:1]
+            emb = torch.as_tensor(embedding, device=self.device
+                                  ).reshape(1, -1).float()
         outs = []
         for i in range(0, n, chunk):
             ro, rd = rays_o[i:i + chunk], rays_d[i:i + chunk]
@@ -466,11 +512,11 @@ class NeRFSystem:
             if pad:
                 ro = torch.cat([ro, ro[-1:].expand(pad, 3)])
                 rd = torch.cat([rd, rd[-1:].expand(pad, 3)])
-            res = render_rays_test(self.model_cfg, self.render_cfg_test,
-                                   self.params["model"],
-                                   self.grid["bitfield"], ro.contiguous(),
-                                   rd.contiguous(),
-                                   block_table=self.grid["block_table"])
+            res = render_rays_test(
+                self.model_cfg, self.render_cfg_test, self.params["model"],
+                self.grid["bitfield"], ro.contiguous(), rd.contiguous(),
+                embedding_a=None if emb is None else emb.expand(blk, -1),
+                block_table=self.grid["block_table"])
             if pad:
                 res = {k: v[:-pad] if v.ndim >= 1 and v.shape[0] == blk
                        else v for k, v in res.items()}

@@ -1,16 +1,22 @@
 """The port's trainer reads every hparam the JAX trainer reads, or refuses
 it: `seed` seeds the port's generator (an explicit `seed=` still wins),
 `ckpt_load` loads its checkpoint, and `stream_autocal`, `eval_lpips`,
-`stream_head_frac` and the `fused` encoder, which the port has not
-ported, raise NotImplementedError instead of being dropped; so do the
-CLI flags that `ingp_tpu_torch.train.main` cannot honour yet."""
+`stream_head_frac`, `optimize_ext` and the `fused` encoder, which the
+port has not ported, raise NotImplementedError instead of being dropped;
+so do the CLI flags that `ingp_tpu_torch.train.main` cannot honour yet,
+and a dataset's per-ray exposure (JAX's own step fails on it). The model
+features `embed_a`, `embed_msk`, `random_bg`, `use_skybox` and
+`use_exposure` are honoured: each changes the parameters or the step."""
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 from ingp_tpu_torch import train as train_cli
-from ingp_tpu_torch.data.synthetic import SyntheticDataset
+from ingp_tpu_torch.data.synthetic import SyntheticDataset, \
+    sphere_density_grid
+from ingp_tpu_torch.grid.occupancy import grid_from_density
 from ingp_tpu_torch.training import trainer as tt
 from ingp_tpu_torch.training.trainer import tree_leaves
 
@@ -47,7 +53,7 @@ def _same(a, b):
 
 @pytest.mark.parametrize("hparam", ["stream_autocal", "ckpt_load",
                                     "eval_lpips", "seed", "stream_head_frac",
-                                    "fused"])
+                                    "fused", "optimize_ext"])
 def test_hparam_honoured_or_refused(hparam, tmp_path):
     if hparam == "seed":
         one, two = _params(_hparams(seed=1)), _params(_hparams(seed=2))
@@ -100,3 +106,76 @@ def test_cli_flag_refused(flag, tmp_path, monkeypatch):
     assert not (tmp_path / "ckpts").exists()
     with pytest.raises(ValueError, match="ckpt_load"):
         train_cli.main(["--val_only"], device="cpu")
+
+
+def _system(h, tr=None):
+    """A tiny system on the grid of the scene's spheres, its tables
+    scaled up so that the field is not empty."""
+    tr = tr or SyntheticDataset(split="train", img_size=8, n_train=2)
+    system = tt.NeRFSystem(h, tr, device="cpu")
+    cfg = system.model_cfg
+    dg = torch.as_tensor(sphere_density_grid(cfg.grid_size, cfg.cascades,
+                                             cfg.scale))
+    system.grid = grid_from_density(system.grid, dg, 0.5, cfg.grid_size,
+                                    cfg.cascades)
+    with torch.no_grad():
+        for k in ("density_table", "rgb_table"):
+            system.params["model"][k].mul_(1e4)
+    return system
+
+
+def _step_loss(system, batch, step=0, bg_color=None):
+    system.global_step = step
+    aux, grads = system.loss_and_grads(batch, batch["noise"],
+                                       bg_color=bg_color)
+    return float(aux["loss"]), grads
+
+
+@pytest.mark.parametrize("feature", ["embed_a", "embed_msk", "random_bg",
+                                     "use_skybox", "use_exposure"])
+def test_feature_honoured(feature):
+    """The feature's parameters exist and take a gradient, or its
+    background changes the step's loss, where it is on and not off."""
+    # a lattice long enough to reach the spheres
+    on = _system(_hparams(march_iters=1024, **{feature: True}))
+    off = _system(_hparams(march_iters=1024))
+    rng = np.random.default_rng(0)
+    batch = on.train_dataset.sample_batch(rng, 64)
+    batch["noise"] = rng.random(64, dtype=np.float32)
+    assert _step_loss(off, batch)[0] > 0 and \
+        float(off.loss_and_grads(batch, batch["noise"])[0]["s_per_ray"]) > 0
+    if feature == "embed_a":
+        assert on.model_cfg.rgb_in_dim == off.model_cfg.rgb_in_dim + 4
+        _, g = _step_loss(on, batch)
+        assert g["embedding_a"].abs().max() > 0
+    if feature == "embed_msk":
+        assert "msk" in on.params and "msk" not in off.params
+        _, g = _step_loss(on, batch)
+        assert g["msk"]["table"].abs().max() > 0
+        assert g["msk"]["net"][0]["w"].abs().max() > 0
+    if feature == "random_bg":
+        bg = on.step_draws(64)["bg_color"]
+        assert bg.shape == (3,) and "bg_color" not in off.step_draws(64)
+        base = _step_loss(on, batch, bg_color=torch.zeros(3))[0]
+        assert _step_loss(on, batch)[0] != base
+        assert _step_loss(off, batch)[0] == base
+    if feature == "use_skybox":
+        closed, _ = _step_loss(on, batch)
+        assert closed == _step_loss(off, batch)[0]
+        opened, g = _step_loss(on, batch, on.WARMUP_STEPS)
+        assert opened != closed
+        assert g["model"]["skybox_net"][0]["w"].abs().max() > 0
+    if feature == "use_exposure":
+        assert on.model_cfg.rgb_act == "none"
+        _, g = _step_loss(on, batch)
+        assert g["model"]["tonemapper_r"][0]["w"].abs().max() > 0
+
+
+def test_per_ray_exposure_refused():
+    tr = SyntheticDataset(split="train", img_size=8, n_train=2)
+    tr.rays = np.concatenate([tr.rays, np.ones_like(tr.rays[..., :1])], -1)
+    system = _system(_hparams(use_exposure=True, march_iters=1024), tr)
+    batch = tr.sample_batch(np.random.default_rng(0), 64)
+    assert batch["exposure"].shape == (64, 1)
+    with pytest.raises(NotImplementedError, match="per-ray exposure"):
+        system.train_step(batch)
