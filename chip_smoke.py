@@ -102,7 +102,27 @@ Phases, each line flushed and stamped with elapsed seconds:
    against their plain versions on the CPU, with times and bounds, as in
    phase 6; then a miss of the bar (novel PSNR >= 26.0, SSIM >= 0.865)
    fails the run;
-12. the kernels JSON line (`launches`: the training window's count for
+12. data: configs/lego.txt trained from disk through
+   `ingp_tpu_torch.train.main` in a temporary working directory, on an
+   NSVF Synthetic-NeRF fixture of the sphere scene that the port's own
+   writer puts under .../Synthetic_NeRF/Lego (100 train and 4 test
+   opaque RGBA views of 800x800, Paeth-filtered rows; the loader's Lego
+   scale): the train split's load seconds, the ms per image spent
+   decoding and unfiltering (the g++-built helper), 800 steps of 16,384
+   rays at the config's own model (the hash encoder: K3 forward and
+   backward), median ms per step, rays/s, peak memory, launches per
+   step; the losses finite and falling and the test PSNR at least 5 dB
+   above that of a constant image at the test views' mean colour, or
+   the run fails; `_dump_val_images` once, every PNG read back through
+   the port's reader. Then the same config with the bench's brick model
+   (encoder brick, stream dedup, bf16, capacity 48, 24 samples per ray)
+   on the loaded datasets for 20 steps: K1, K2 and K3 forward and
+   backward at lego's batch, launches per step, and each kernel variant
+   of its first step held against its plain version on the CPU with its
+   times, as in phase 6. Then configs/Playground.txt (tnt, appearance
+   codes, the transient mask, the random background) on a 64x36 TNT
+   fixture for 20 steps;
+13. the kernels JSON line (`launches`: the training window's count for
    the six package kernels, the probes phase's for the probe kernels;
    `launches_per_train_step` for all), then the result line.
 
@@ -1712,6 +1732,12 @@ CLI_PSNR_SLACK = 1.0
 CLI_CONFIG = "configs/synthetic_smoke.txt"
 
 
+def _repo_file(rel):
+    """The path of rel, a file of the repository."""
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
 class StepLog:
     """While active, records the loss and the host clock after every
     `NeRFSystem.training_step`."""
@@ -1803,9 +1829,7 @@ def phase_cli():
     from ingp_tpu_torch.training.config import get_opts
     from ingp_tpu_torch.training.trainer import model_config_from_hparams
     from ingp_tpu_torch.utils.ckpt import load_ckpt
-    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          CLI_CONFIG)
-    argv = ["--config", config]
+    argv = ["--config", _repo_file(CLI_CONFIG)]
     h = get_opts(argv)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="ingp_cli_") as tmp:
@@ -1998,6 +2022,280 @@ def phase_quality():
     log(f"quality: novel-view psnr {metrics['psnr']:.4f} >= "
         f"{gate.PSNR_BAR}, ssim {metrics['ssim']:.4f} >= {gate.SSIM_BAR}")
     return checks, launches
+
+
+# phase "data": configs/lego.txt from disk at its full width on an NSVF
+# fixture of the sphere scene (DATA_VIEWS train and test views of 800 px,
+# as Synthetic-NeRF's), DATA_STEPS steps (the test PSNR must clear the
+# constant image's by DATA_PSNR_MARGIN; fewer steps fell short of it,
+# PERF.md); the same with the bench's brick model
+# (BRICK_FLAGS) for DATA_BRICK_STEPS steps, whose kernels are checked at
+# lego's batch; configs/Playground.txt on a small TNT fixture
+LEGO_CONFIG = "configs/lego.txt"
+PLAYGROUND_CONFIG = "configs/Playground.txt"
+DATA_VIEWS = (100, 4)
+DATA_STEPS, DATA_BRICK_STEPS, TNT_STEPS = 800, 20, 20
+BRICK_FLAGS = ["--encoder", "brick", "--stream_dedup", "--compute_dtype",
+               "bfloat16", "--table_dtype", "bfloat16", "--capacity", "48",
+               "--samples_per_ray", "24"]
+# the test PSNR must clear a constant image at the test set's mean colour
+# by this much: a transposed image or a wrong pose convention trains
+# toward that constant
+DATA_PSNR_MARGIN = 5.0
+
+
+class Clock:
+    """While active, times every call of owner.name: calls and seconds
+    in all, and with key(arguments) the seconds by key."""
+
+    def __init__(self, owner, name, key=None):
+        self.owner, self.name, self.key = owner, name, key
+        self.calls, self.seconds, self.by_key = 0, 0.0, {}
+
+    def __enter__(self):
+        self.fn = getattr(self.owner, self.name)
+        clock = self
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return clock.fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t
+                clock.calls += 1
+                clock.seconds += dt
+                if clock.key is not None:
+                    key = clock.key(*a, **k)
+                    clock.by_key[key] = clock.by_key.get(key, 0.0) + dt
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+    def ms_per_call(self) -> float:
+        return self.seconds / max(self.calls, 1) * 1e3
+
+
+class FitSpan:
+    """While active, `NeRFSystem.fit` starts with the launch counts at 0
+    and keeps its system and the launch counts at its end (its training
+    steps' launches, without the validation that follows)."""
+
+    def __enter__(self):
+        from ingp_tpu_torch.training.trainer import NeRFSystem
+        self.cls, self.fn = NeRFSystem, NeRFSystem.fit
+        span = self
+
+        def fit(system, *a, **k):
+            import torch
+            clear_counts()
+            try:
+                return span.fn(system, *a, **k)
+            finally:
+                torch.cuda.synchronize()
+                span.system, span.launches = system, launch_counts()
+        NeRFSystem.fit = fit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fit = self.fn
+
+
+def const_psnr(ds):
+    """Mean PSNR over the views of ds of the constant image at the mean
+    colour of all of them."""
+    import numpy as np
+    rgb = ds.rays[..., :3]
+    mse = ((rgb - rgb.reshape(-1, 3).mean(0)) ** 2).mean(axis=(1, 2))
+    return float(np.mean(-10 * np.log10(mse)))
+
+
+def train_from_disk(what, argv, steps, falling=True):
+    """`ingp_tpu_torch.train.main(argv)` in the current directory with the
+    launch counts, step times, losses, peak memory and the system of its
+    fit; its losses must be finite and, with falling, fall. Returns
+    (test metrics, the fit's span)."""
+    import math
+    import torch
+    from ingp_tpu_torch import train as train_cli
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with FitSpan() as span, StepLog() as log_:
+        metrics = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(log_.losses) != steps:
+        raise AssertionError(f"{what}: {len(log_.losses)} steps, expected "
+                             f"{steps}")
+    per_step = {k: span.launches[k] / steps for k in KERNELS}
+    h = span.system.hparams
+    log(f"{what}: {steps} steps x {h.batch_size} rays of "
+        f"{span.system.train_dataset.img_wh} images, encoder {h.encoder}: "
+        f"{log_.step_ms():.2f} ms/step (median host time between steps), "
+        f"{h.batch_size / log_.step_ms() * 1e3:.1f} training rays/s, peak "
+        f"{peak:.2f} GiB, {wall:.2f} s with set-up and validation; "
+        f"launches per step {per_step}")
+    if falling:
+        check_falling(log_.losses, min(20, max(steps // 4, 1)), what)
+    elif not all(math.isfinite(float(v)) for v in log_.losses):
+        raise AssertionError(f"{what}: non-finite training loss")
+    log(f"{what}: test/psnr {metrics['psnr']:.4f} test/ssim "
+        f"{metrics['ssim']:.4f}")
+    return metrics, span
+
+
+def data_brick(argv, tr, te):
+    """The lego config of argv with the bench's brick model (BRICK_FLAGS)
+    on the loaded lego datasets tr and te: DATA_BRICK_STEPS steps of
+    lego's batch, the first recording its kernel variants, the launch
+    counts of the others per step; then each recorded variant held
+    against its plain version on the CPU with its times, as in phase
+    "train"; the losses must be finite. Returns {kernel: {variant:
+    numbers}}."""
+    import math
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.training.config import get_opts
+    from ingp_tpu_torch.training.trainer import NeRFSystem
+    h = get_opts(argv + BRICK_FLAGS)
+    system = NeRFSystem(h, tr, te, device=DEVICE)
+    recs = record_kernels(system.model_cfg, KERNELS)
+    rng = np.random.default_rng(h.seed)
+    try:
+        losses = [system.training_step(tr.sample_batch(rng))["loss"]]
+    finally:
+        for r in recs.values():
+            r.restore()
+    torch.cuda.synchronize()
+    clear_counts()
+    t = time.time()
+    for _ in range(DATA_BRICK_STEPS - 1):
+        losses.append(system.training_step(tr.sample_batch(rng))["loss"])
+    torch.cuda.synchronize()
+    n = DATA_BRICK_STEPS - 1
+    step_ms = (time.time() - t) / n * 1e3
+    launches = launch_counts()
+    log(f"data brick: {n} steps x {h.batch_size} rays after the first, "
+        f"encoder {h.encoder}, encode_chunk "
+        f"{system.model_cfg.encode_chunk}: {step_ms:.2f} ms/step with "
+        f"host sampling, {h.batch_size / step_ms * 1e3:.1f} training "
+        f"rays/s; launches per step "
+        f"{ {k: launches[k] / n for k in KERNELS} }")
+    check_launched({k: launches[k] for k in KERNELS}, "the lego brick steps")
+    losses = [float(v) for v in losses]
+    log(f"data brick: loss first step {losses[0]:.6f}, last {losses[-1]:.6f}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("data brick: non-finite training loss")
+    with torch.no_grad():
+        return {name: {f"data, {tag}": CHECKS[name](a, f"data, {tag}")
+                       for tag, (a, _) in r.calls.items()}
+                for name, r in recs.items()}
+
+
+def phase_data():
+    """configs/lego.txt from disk through `ingp_tpu_torch.train.main`, in a
+    temporary working directory: an NSVF Synthetic-NeRF fixture of the
+    sphere scene under .../Synthetic_NeRF/Lego (DATA_VIEWS 800 px RGBA
+    views, Paeth-filtered rows, written by the port's own writer in one
+    process per CPU); the train split's load seconds and the ms per
+    image spent decoding and unfiltering; DATA_STEPS steps of lego's
+    16,384 rays (the config's hash encoder: only K3 of the kernels),
+    median ms per step, rays/s, peak memory, launches per step; the
+    losses finite and falling, the test PSNR at least DATA_PSNR_MARGIN dB
+    above the constant image's; `_dump_val_images` once, every PNG it
+    wrote read back. Then lego.txt with the bench's brick model on the
+    loaded datasets (`data_brick`): K1, K2 and K3 forward and backward
+    at lego's batch. Then configs/Playground.txt (tnt, appearance
+    codes, the transient mask, the random background) on a small TNT
+    fixture for TNT_STEPS steps. Returns {kernel: {variant: numbers}}."""
+    import os
+    import tempfile
+    import torch
+    from ingp_tpu_torch.data import color_utils, image_io
+    from ingp_tpu_torch.data.nsvf import NSVFDataset
+    from ingp_tpu_torch.utils.blender_fixture import (write_nsvf_scene,
+                                                      write_tnt_scene)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ingp_data_") as tmp:
+        os.chdir(tmp)
+        try:
+            root = os.path.join(tmp, "Synthetic_NeRF", "Lego")
+            t = time.time()
+            n_train, n_test = DATA_VIEWS
+            write_nsvf_scene(root, 800, n_train, n_test)
+            log(f"data: wrote the NSVF fixture ({n_train} + {n_test} "
+                f"views of 800x800 RGBA, Paeth rows) in "
+                f"{time.time() - t:.2f} s with {os.cpu_count()} processes")
+
+            def lego(steps, *flags):
+                return ["--config", _repo_file(LEGO_CONFIG), "--root_dir",
+                        root, "--num_epochs", "1", "--steps_per_epoch",
+                        str(steps), "--no_save_test", *flags]
+            with Clock(NSVFDataset, "read_meta",
+                       key=lambda ds, split: split) as load, \
+                    Clock(color_utils, "read_png") as decode, \
+                    Clock(image_io, "unfilter") as unfilter:
+                metrics, span = train_from_disk("data", lego(DATA_STEPS),
+                                                DATA_STEPS)
+            log(f"data: load s by split {load.by_key}; per image "
+                f"{decode.ms_per_call():.2f} ms decoding (read_png, "
+                f"{decode.calls} images) of which "
+                f"{unfilter.ms_per_call():.2f} ms unfiltering (the g++ "
+                f"helper)")
+            check_launched({"composite": span.launches["composite"],
+                            "composite_bwd": span.launches["composite_bwd"]},
+                           "the lego run")
+            system = span.system
+            floor = const_psnr(system.test_dataset)
+            log(f"data: test psnr {metrics['psnr']:.4f} against "
+                f"{floor:.4f} for the constant image at the test views' "
+                f"mean colour")
+            if not metrics["psnr"] >= floor + DATA_PSNR_MARGIN:
+                raise AssertionError(
+                    f"data: test psnr {metrics['psnr']} is not "
+                    f"{DATA_PSNR_MARGIN} dB above the constant image's "
+                    f"{floor}")
+            ckpt_dir = os.path.join(tmp, "ckpts", "nsvf", "lego")
+            t = time.time()
+            system._dump_val_images(ckpt_dir, system.global_step)
+            names = sorted(os.listdir(os.path.join(ckpt_dir, "val")))
+            w, h = system.test_dataset.img_wh
+            for name in names:
+                img = image_io.read_png(os.path.join(ckpt_dir, "val", name))
+                if img.shape != (h, w, 3):
+                    raise AssertionError(f"data: {name} reads back as "
+                                         f"{img.shape}")
+            if len(names) != 4:
+                raise AssertionError(f"data: the dump wrote {names}")
+            log(f"data: _dump_val_images at step {system.global_step} "
+                f"wrote {names} in {time.time() - t:.2f} s; each reads "
+                f"back as {w}x{h} RGB")
+            tr, te = system.train_dataset, system.test_dataset
+            del span, system
+            torch.cuda.empty_cache()
+            checks = data_brick(lego(DATA_STEPS), tr, te)
+            del tr, te
+            torch.cuda.empty_cache()
+
+            tnt = os.path.join(tmp, "TanksAndTempleBG", "Playground")
+            write_tnt_scene(tnt)
+            _, span = train_from_disk("data tnt", [
+                "--config", _repo_file(PLAYGROUND_CONFIG), "--root_dir",
+                tnt, "--num_epochs", "1", "--steps_per_epoch",
+                str(TNT_STEPS), "--no_save_test"], TNT_STEPS, falling=False)
+            h = span.system.hparams
+            log(f"data tnt: {type(span.system.train_dataset).__name__}, "
+                f"embed_a {h.embed_a}, embed_msk {h.embed_msk}, random_bg "
+                f"{h.random_bg}, parameters {sorted(span.system.params)}")
+            check_launched({"composite": span.launches["composite"],
+                            "composite_bwd": span.launches["composite_bwd"]},
+                           "the tnt run")
+        finally:
+            os.chdir(cwd)
+    return checks
 
 
 def phase_probes():
@@ -2245,11 +2543,13 @@ def main(argv):
     probes, probe_launches = phase_probes()
     phase_cli()
     quality_checks, _ = phase_quality()
+    data_checks = phase_data()
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
     other_checks = {k: {**quality_checks.get(k, {}),
-                        **feature_checks.get(k, {})} for k in KERNELS}
+                        **feature_checks.get(k, {}),
+                        **data_checks.get(k, {})} for k in KERNELS}
     print(json.dumps({"kernels": kernel_rows(render_errs, train_checks,
                                              other_checks, launches,
                                              probes, probe_launches)}),

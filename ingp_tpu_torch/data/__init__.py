@@ -1,9 +1,15 @@
 """Dataset registry (counterpart of ingp_tpu/data/__init__.py).
 
-`synthetic`, the procedural scene that needs no files, is the one
-loader ported; every other name raises NotImplementedError."""
+The on-disk loaders nerf, nsvf, nerfpp, tnt and colmap and the
+procedural `synthetic` scene are ported; kitti, mega and highbay raise
+NotImplementedError."""
 from .base import BaseDataset
+from .colmap import ColmapDataset
+from .nerf import NeRFDataset
+from .nerfpp import NeRFPPDataset
+from .nsvf import NSVFDataset
 from .synthetic import SyntheticDataset, sphere_density_grid
+from .tnt import TNTDataset
 
 DATASET_NAMES = ("nerf", "nsvf", "colmap", "nerfpp", "tnt", "kitti", "mega",
                  "highbay", "synthetic")
@@ -13,9 +19,11 @@ def _not_ported(name):
     def ctor(*a, **k):
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet (ROADMAP.md Queue 1 item "
-            f"7: the data layer); only 'synthetic' is")
+            f"7: the data layer)")
     return ctor
 
 
 dataset_dict = {name: _not_ported(name) for name in DATASET_NAMES}
-dataset_dict["synthetic"] = SyntheticDataset
+dataset_dict.update(nerf=NeRFDataset, nsvf=NSVFDataset, colmap=ColmapDataset,
+                    nerfpp=NeRFPPDataset, tnt=TNTDataset,
+                    synthetic=SyntheticDataset)

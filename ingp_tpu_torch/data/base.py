@@ -1,9 +1,27 @@
 """Dataset container (counterpart of ingp_tpu/data/base.py): training
 batches (`sample_batch`) and whole test images (`test_item`). Plain
-numpy, no framework dependency."""
+numpy, no framework dependency. `load_rays` reads a split's images
+straight into one stacked array."""
 from __future__ import annotations
 
 import numpy as np
+
+from .color_utils import read_image
+
+
+def load_rays(img_paths, img_wh, channels=3):
+    """(N, h*w, channels) float32 of the images at img_paths, each read
+    (alpha blended to white, resized to img_wh) into its slot of one
+    array allocated up front: the JAX loaders' np.stack of a list,
+    without the list's copy (100 views at 800x800 are 768 MB). Channels
+    past the third are left for the caller to fill."""
+    if not img_paths:
+        raise ValueError("no images to load")
+    w, h = img_wh
+    rays = np.empty((len(img_paths), w * h, channels), np.float32)
+    for i, path in enumerate(img_paths):
+        rays[i, :, :3] = read_image(path, img_wh)
+    return rays
 
 
 class BaseDataset:

@@ -13,8 +13,9 @@ then optax's chain clip_by_global_norm(50) -> adam(cosine decay,
 eps 1e-8) written out: the clip by hand (optax scales by 50/|g| only
 when |g| >= 50, with no epsilon), torch.optim.Adam for the moments, and
 the learning rate of update t computed from t, the count of updates
-before it. The shard_map path, the cap auto-calibration, the native
-batch loader, the validation image dumps and pose refinement
+before it. The loop writes the JAX loop's validation images
+(`_dump_val_images`, :836-861). The shard_map path, the cap
+auto-calibration, the native batch loader and pose refinement
 (`optimize_ext`) are not ported.
 """
 from __future__ import annotations
@@ -543,6 +544,35 @@ class NeRFSystem:
             ssims.append(float(ssim(pred, gt)))
         return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
+    def _dump_val_images(self, ckpt_dir, step):
+        """The test split's first view rendered to ckpt_dir/val as
+        <step>_rgb.png, _depth.png (TURBO over twice the scene scale),
+        _normal.png and _normal_raw.png (camera-frame normals) and, with
+        render_semantic, _semantic.png (JAX trainer :836-861)."""
+        from ..utils.vis import (convert_normal, depth2img, save_image,
+                                 semantic2img)
+        w, h = self.test_dataset.img_wh
+        item = self.test_dataset.test_item(0)
+        res = {k: v.cpu().numpy() for k, v in
+               self.render_image(item["pose"]).items()
+               if torch.is_tensor(v)}
+        img_dir = os.path.join(ckpt_dir, "val")
+        os.makedirs(img_dir, exist_ok=True)
+
+        def save(image, tag):
+            save_image(image, os.path.join(img_dir, f"{step:05d}_{tag}.png"))
+        save(np.clip(res["rgb"].reshape(h, w, 3), 0, 1), "rgb")
+        depth = depth2img(res["depth"].reshape(h, w),
+                          scale=2 * self.hparams.scale)[..., ::-1]
+        save(depth / 255.0, "depth")
+        for key in ("normal_pred", "normal_raw"):
+            nrm = convert_normal(res[key].reshape(h, w, 3), item["pose"])
+            save(np.clip((nrm + 1) / 2, 0, 1), key.replace("_pred", ""))
+        if self.hparams.render_semantic:
+            sem = semantic2img(res["semantic"].reshape(h, w),
+                               self.hparams.num_classes)[..., ::-1]
+            save(sem / 255.0, "semantic")
+
 
     # ------------------------------------------------------------------
     def stage_batch(self, batch):
@@ -572,11 +602,13 @@ class NeRFSystem:
         `last` and `last_slim` checkpoints. on_step(step, aux) is
         called after every step.
 
+        With ckpt_dir, every VAL_DUMP_EVERY steps after step 0 the
+        validation images of the test split's first view go to
+        ckpt_dir/val (`_dump_val_images`).
+
         Raises NotImplementedError, before any step, for what the port
-        does not have: the native loader (use_native_loader=True),
-        hparams.profile_dir, and with ckpt_dir a run that would reach a
-        multiple of VAL_DUMP_EVERY steps, where the JAX loop writes
-        validation images."""
+        does not have: the native loader (use_native_loader=True) and
+        hparams.profile_dir."""
         h = self.hparams
         if use_native_loader:
             raise NotImplementedError(
@@ -597,16 +629,10 @@ class NeRFSystem:
                     self.load_state(ckpt_mgr.restore(latest))
                     print(f"resumed from {ckpt_dir}/steps @ step "
                           f"{self.global_step}", flush=True)
-                dump = -(-max(self.global_step, 1) // VAL_DUMP_EVERY) \
-                    * VAL_DUMP_EVERY
-                if dump < total_steps:
-                    raise NotImplementedError(
-                        f"this run reaches step {dump}, where the training "
-                        f"loop writes validation images; utils/vis is not "
-                        f"ported yet (ROADMAP.md Queue 1 item 3)")
                 logger = make_logger(getattr(h, "logger", "jsonl"),
                                      ckpt_dir, getattr(h, "exp_name", "exp"))
-            self._run(total_steps, rng, log_every, logger, ckpt_mgr, on_step)
+            self._run(total_steps, rng, log_every, logger, ckpt_mgr, on_step,
+                      ckpt_dir)
         finally:
             if logger:
                 logger.close()
@@ -618,7 +644,8 @@ class NeRFSystem:
                       slim_state(self.state()))
         return self
 
-    def _run(self, total_steps, rng, log_every, logger, ckpt_mgr, on_step):
+    def _run(self, total_steps, rng, log_every, logger, ckpt_mgr, on_step,
+             ckpt_dir):
         h = self.hparams
         t0 = time.time()
         rays_done = 0
@@ -650,5 +677,7 @@ class NeRFSystem:
                         "train/rays_per_s": rays_s,
                         "lr": self.lr_at(step),
                     })
+            if ckpt_dir and step > 0 and step % VAL_DUMP_EVERY == 0:
+                self._dump_val_images(ckpt_dir, step)
             if ckpt_mgr and (step + 1) % h.steps_per_epoch == 0:
                 ckpt_mgr.save(step + 1, self.state())

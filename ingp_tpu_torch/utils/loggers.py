@@ -26,20 +26,23 @@ class ExperimentLogger:
 
 
 class JsonlLogger(ExperimentLogger):
-    """One JSON object per line."""
+    """One JSON object per line; images go to PNG files in val/ beside
+    it."""
 
     def __init__(self, path: str):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self._f = open(path, "a")
+        self._img_dir = os.path.join(os.path.dirname(path) or ".", "val")
 
     def log_metrics(self, step, metrics):
         self._f.write(json.dumps({"step": step, **metrics}) + "\n")
         self._f.flush()
 
     def log_image(self, step, tag, image):
-        raise NotImplementedError(
-            "image logging needs utils/vis, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
+        from .vis import save_image
+        os.makedirs(self._img_dir, exist_ok=True)
+        save_image(image, os.path.join(self._img_dir,
+                                       f"{step:05d}_{tag}.png"))
 
     def close(self):
         self._f.close()

@@ -5,8 +5,9 @@ step back exactly, on the brick and the hash encoder (whose tables the
 state holds in the JAX package's feature-major layout); a JAX system's
 state() through numpy, loaded into the port, gives the same next step;
 AsyncCkptManager commits each step atomically, keeps max_to_keep steps
-and finds the latest; fit resumes from its steps/ directory and refuses
-what the port does not have."""
+and finds the latest; fit resumes from its steps/ directory, writes the
+validation images every VAL_DUMP_EVERY steps and refuses what the port
+does not have."""
 import os
 from types import SimpleNamespace
 
@@ -18,6 +19,7 @@ import torch
 
 from ingp_tpu.data.synthetic import SyntheticDataset as JData
 from ingp_tpu.training import trainer as jt
+from ingp_tpu_torch.data.image_io import read_png
 from ingp_tpu_torch.data.synthetic import SyntheticDataset
 from ingp_tpu_torch.training import trainer as tt
 from ingp_tpu_torch.utils import ckpt
@@ -187,7 +189,7 @@ def test_async_manager_commit_cleanup_latest(tmp_path, monkeypatch):
     mgr.close()
 
 
-def test_fit_checkpoints_resume_and_refusals(tmp_path):
+def test_fit_checkpoints_resume_and_refusals(tmp_path, monkeypatch):
     h = _hparams()
     a = _system(h)
     a.fit(log_every=1, ckpt_dir=str(tmp_path))
@@ -210,8 +212,15 @@ def test_fit_checkpoints_resume_and_refusals(tmp_path):
     assert steps == [0, 1]
     with pytest.raises(NotImplementedError, match="native"):
         _system(h).fit(use_native_loader=True)
-    with pytest.raises(NotImplementedError, match="step 10000"):
-        _system(_hparams(num_epochs=6, steps_per_epoch=2000)).fit(
-            ckpt_dir=str(tmp_path / "long"))
+    # the validation images at every VAL_DUMP_EVERY steps after step 0
+    monkeypatch.setattr(tt, "VAL_DUMP_EVERY", 2)
+    te = SyntheticDataset(split="test", img_size=8, n_test=1)
+    _system(_hparams(num_epochs=3), test_dataset=te).fit(
+        ckpt_dir=str(tmp_path / "long"))
+    dumps = sorted(os.listdir(tmp_path / "long" / "val"))
+    assert dumps == [f"{s:05d}_{k}.png" for s in (2, 4)
+                     for k in ("depth", "normal", "normal_raw", "rgb")]
+    for name in dumps:
+        assert read_png(tmp_path / "long" / "val" / name).shape == (8, 8, 3)
     with pytest.raises(NotImplementedError, match="profile_dir"):
         _system(_hparams(profile_dir=str(tmp_path))).fit()

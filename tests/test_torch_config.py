@@ -52,6 +52,6 @@ def test_dataset_registry():
     ds = dataset_dict["synthetic"](split="test", root_dir=None,
                                    downsample=0.125)
     assert isinstance(ds, SyntheticDataset) and ds.img_wh == (16, 16)
-    for name in sorted(set(dataset_dict) - {"synthetic"}):
+    for name in ("kitti", "mega", "highbay"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             dataset_dict[name](split="train", root_dir="x", downsample=1.0)
