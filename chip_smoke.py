@@ -121,8 +121,25 @@ Phases, each line flushed and stamped with elapsed seconds:
    of its first step held against its plain version on the CPU with its
    times, as in phase 6. Then configs/Playground.txt (tnt, appearance
    codes, the transient mask, the random background) on a 64x36 TNT
-   fixture for 20 steps;
-13. the kernels JSON line (`launches`: the training window's count for
+   fixture for 20 steps, through `train.main` without --no_save_test, so
+   that it ends with `render_for_test` of the fixture's camera path;
+13. offline, in phase 12's working directory: `render_for_test(hparams,
+   system=...)` of the 4 test views and `extract_mesh` at 512x128x512
+   (sigma 10) on phase 12's brick system, timed, with the launch counts
+   set to 0 before each, the first render chunk's K1, K2 and K3 forward
+   variants and the first probe chunk's K2 forward held against their
+   plain versions on the CPU as in phase 6; then the three CLIs on
+   lego's `last` checkpoint: `render_cli` (4 views of 800x800 with the
+   ms per view and rays/s, rgb.mp4 or the skip line, and frame 0 equal
+   to phase 12's `_dump_val_images` of the same view), the panorama at
+   512x1024 (its three PNGs read back, the opacity mean) and
+   `extract_mesh_cli` at 512x128x512 with --sigma_threshold 10 (the
+   probe's and the isosurface's ms, the vertex and face counts, the .ply
+   header read back, a non-empty mesh with every vertex inside the
+   scene box); then the TNT run's trajectory frames read back and both
+   aux-head passes (semantic labels, up-normal masks) on its system,
+   each pass's K3 launches counted;
+14. the kernels JSON line (`launches`: the training window's count for
    the six package kernels, the probes phase's for the probe kernels;
    `launches_per_train_step` for all), then the result line.
 
@@ -2044,62 +2061,73 @@ BRICK_FLAGS = ["--encoder", "brick", "--stream_dedup", "--compute_dtype",
 DATA_PSNR_MARGIN = 5.0
 
 
-class Clock:
-    """While active, times every call of owner.name: calls and seconds
-    in all, and with key(arguments) the seconds by key."""
+class Patch:
+    """While active, owner.name is replaced by the subclass's `call`,
+    which reaches the original as self.fn (a plain function is set, so
+    that a method still receives its instance)."""
 
-    def __init__(self, owner, name, key=None):
-        self.owner, self.name, self.key = owner, name, key
-        self.calls, self.seconds, self.by_key = 0, 0.0, {}
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
 
     def __enter__(self):
         self.fn = getattr(self.owner, self.name)
-        clock = self
+        patch = self
 
-        def timed(*a, **k):
-            t = time.perf_counter()
-            try:
-                return clock.fn(*a, **k)
-            finally:
-                dt = time.perf_counter() - t
-                clock.calls += 1
-                clock.seconds += dt
-                if clock.key is not None:
-                    key = clock.key(*a, **k)
-                    clock.by_key[key] = clock.by_key.get(key, 0.0) + dt
-        setattr(self.owner, self.name, timed)
+        def call(*a, **k):
+            return patch.call(*a, **k)
+        setattr(self.owner, self.name, call)
         return self
 
     def __exit__(self, *exc):
         setattr(self.owner, self.name, self.fn)
 
+
+class Clock(Patch):
+    """While active, times every call of owner.name: calls and seconds
+    in all, and with key(arguments) the seconds by key; with sync, each
+    call ends with a synchronize, so that its time is the card's."""
+
+    def __init__(self, owner, name, key=None, sync=False):
+        super().__init__(owner, name)
+        self.key, self.sync = key, sync
+        self.calls, self.seconds, self.by_key = 0, 0.0, {}
+
+    def call(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            out = self.fn(*a, **k)
+            if self.sync:
+                import torch
+                torch.cuda.synchronize()
+            return out
+        finally:
+            dt = time.perf_counter() - t
+            self.calls += 1
+            self.seconds += dt
+            if self.key is not None:
+                key = self.key(*a, **k)
+                self.by_key[key] = self.by_key.get(key, 0.0) + dt
+
     def ms_per_call(self) -> float:
         return self.seconds / max(self.calls, 1) * 1e3
 
 
-class FitSpan:
-    """While active, `NeRFSystem.fit` starts with the launch counts at 0
-    and keeps its system and the launch counts at its end (its training
-    steps' launches, without the validation that follows)."""
+class Span(Patch):
+    """While active, each call of owner.name starts with the launch
+    counts at 0 and keeps, at its end (after a synchronize), its launch
+    counts, its seconds and its result (for `NeRFSystem.fit`: the
+    system)."""
 
-    def __enter__(self):
-        from ingp_tpu_torch.training.trainer import NeRFSystem
-        self.cls, self.fn = NeRFSystem, NeRFSystem.fit
-        span = self
-
-        def fit(system, *a, **k):
-            import torch
-            clear_counts()
-            try:
-                return span.fn(system, *a, **k)
-            finally:
-                torch.cuda.synchronize()
-                span.system, span.launches = system, launch_counts()
-        NeRFSystem.fit = fit
-        return self
-
-    def __exit__(self, *exc):
-        self.cls.fit = self.fn
+    def call(self, *a, **k):
+        import torch
+        torch.cuda.synchronize()
+        clear_counts()
+        t = time.perf_counter()
+        self.result = self.fn(*a, **k)
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - t
+        self.launches = launch_counts()
+        return self.result
 
 
 def const_psnr(ds):
@@ -2119,10 +2147,11 @@ def train_from_disk(what, argv, steps, falling=True):
     import math
     import torch
     from ingp_tpu_torch import train as train_cli
+    from ingp_tpu_torch.training.trainer import NeRFSystem
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
-    with FitSpan() as span, StepLog() as log_:
+    with Span(NeRFSystem, "fit") as span, StepLog() as log_:
         metrics = train_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
@@ -2131,9 +2160,9 @@ def train_from_disk(what, argv, steps, falling=True):
         raise AssertionError(f"{what}: {len(log_.losses)} steps, expected "
                              f"{steps}")
     per_step = {k: span.launches[k] / steps for k in KERNELS}
-    h = span.system.hparams
+    h = span.result.hparams
     log(f"{what}: {steps} steps x {h.batch_size} rays of "
-        f"{span.system.train_dataset.img_wh} images, encoder {h.encoder}: "
+        f"{span.result.train_dataset.img_wh} images, encoder {h.encoder}: "
         f"{log_.step_ms():.2f} ms/step (median host time between steps), "
         f"{h.batch_size / log_.step_ms() * 1e3:.1f} training rays/s, peak "
         f"{peak:.2f} GiB, {wall:.2f} s with set-up and validation; "
@@ -2154,7 +2183,7 @@ def data_brick(argv, tr, te):
     counts of the others per step; then each recorded variant held
     against its plain version on the CPU with its times, as in phase
     "train"; the losses must be finite. Returns {kernel: {variant:
-    numbers}}."""
+    numbers}}, and the system."""
     import math
     import numpy as np
     import torch
@@ -2192,7 +2221,7 @@ def data_brick(argv, tr, te):
     with torch.no_grad():
         return {name: {f"data, {tag}": CHECKS[name](a, f"data, {tag}")
                        for tag, (a, _) in r.calls.items()}
-                for name, r in recs.items()}
+                for name, r in recs.items()}, system
 
 
 def phase_data():
@@ -2210,10 +2239,15 @@ def phase_data():
     loaded datasets (`data_brick`): K1, K2 and K3 forward and backward
     at lego's batch. Then configs/Playground.txt (tnt, appearance
     codes, the transient mask, the random background) on a small TNT
-    fixture for TNT_STEPS steps. Returns {kernel: {variant: numbers}}."""
+    fixture for TNT_STEPS steps, through `train.main` to its end-of-run
+    render of the camera path. Then phase "offline" (`phase_offline`) in
+    the same directory, on lego's checkpoint, the brick system and the
+    TNT system. Returns ({kernel: {variant: numbers}} of phase "data",
+    the same of phase "offline")."""
     import os
     import tempfile
     import torch
+    from ingp_tpu_torch import train as train_cli
     from ingp_tpu_torch.data import color_utils, image_io
     from ingp_tpu_torch.data.nsvf import NSVFDataset
     from ingp_tpu_torch.utils.blender_fixture import (write_nsvf_scene,
@@ -2248,7 +2282,7 @@ def phase_data():
             check_launched({"composite": span.launches["composite"],
                             "composite_bwd": span.launches["composite_bwd"]},
                            "the lego run")
-            system = span.system
+            system = span.result
             floor = const_psnr(system.test_dataset)
             log(f"data: test psnr {metrics['psnr']:.4f} against "
                 f"{floor:.4f} for the constant image at the test views' "
@@ -2260,7 +2294,8 @@ def phase_data():
                     f"{floor}")
             ckpt_dir = os.path.join(tmp, "ckpts", "nsvf", "lego")
             t = time.time()
-            system._dump_val_images(ckpt_dir, system.global_step)
+            dump_step = system.global_step
+            system._dump_val_images(ckpt_dir, dump_step)
             names = sorted(os.listdir(os.path.join(ckpt_dir, "val")))
             w, h = system.test_dataset.img_wh
             for name in names:
@@ -2276,26 +2311,32 @@ def phase_data():
             tr, te = system.train_dataset, system.test_dataset
             del span, system
             torch.cuda.empty_cache()
-            checks = data_brick(lego(DATA_STEPS), tr, te)
+            checks, brick = data_brick(lego(DATA_STEPS), tr, te)
             del tr, te
-            torch.cuda.empty_cache()
 
             tnt = os.path.join(tmp, "TanksAndTempleBG", "Playground")
             write_tnt_scene(tnt)
-            _, span = train_from_disk("data tnt", [
-                "--config", _repo_file(PLAYGROUND_CONFIG), "--root_dir",
-                tnt, "--num_epochs", "1", "--steps_per_epoch",
-                str(TNT_STEPS), "--no_save_test"], TNT_STEPS, falling=False)
-            h = span.system.hparams
-            log(f"data tnt: {type(span.system.train_dataset).__name__}, "
+            with Span(train_cli, "render_for_test") as traj_frames:
+                _, span = train_from_disk("data tnt", [
+                    "--config", _repo_file(PLAYGROUND_CONFIG), "--root_dir",
+                    tnt, "--num_epochs", "1", "--steps_per_epoch",
+                    str(TNT_STEPS)], TNT_STEPS, falling=False)
+            h = span.result.hparams
+            log(f"data tnt: {type(span.result.train_dataset).__name__}, "
                 f"embed_a {h.embed_a}, embed_msk {h.embed_msk}, random_bg "
-                f"{h.random_bg}, parameters {sorted(span.system.params)}")
+                f"{h.random_bg}, parameters {sorted(span.result.params)}")
             check_launched({"composite": span.launches["composite"],
                             "composite_bwd": span.launches["composite_bwd"]},
                            "the tnt run")
+            dump_png = os.path.join(ckpt_dir, "val",
+                                    f"{dump_step:05d}_rgb.png")
+            lego_argv = ["--config", _repo_file(LEGO_CONFIG), "--root_dir",
+                         root]
+            offline_checks = phase_offline(brick, lego_argv, dump_png, span,
+                                           traj_frames)
         finally:
             os.chdir(cwd)
-    return checks
+    return checks, offline_checks
 
 
 def phase_probes():
@@ -2476,6 +2517,464 @@ def phase_profile(system, ds, train_system):
     log(f"  prof train step: device ms by part {summary}")
 
 
+OFFLINE_PANO_HW = (512, 1024)
+OFFLINE_MESH_RES = (512, 128, 512)
+OFFLINE_SIGMA = 10.0
+
+
+class Tap(Patch):
+    """While active, every call of owner.name passes through and
+    appends record(arguments, keyword arguments, result) to `seen`."""
+
+    def __init__(self, owner, name, record):
+        super().__init__(owner, name)
+        self.record = record
+        self.seen = []
+
+    def call(self, *a, **k):
+        out = self.fn(*a, **k)
+        self.seen.append(self.record(a, k, out))
+        return out
+
+
+def budget_taps():
+    """A Tap on the test render's march recording (rays, marched
+    samples) of each chunk: the sigma prepass keeps at most rays x
+    samples_per_ray of them (`_render_rays_test_inner`)."""
+    from ingp_tpu_torch.models import rendering as rendering_mod
+    return Tap(rendering_mod, "_march",
+               lambda a, k, out: (a[3].shape[0], int(out["total_samples"])))
+
+
+def overflows(seen, spr):
+    """'n of m chunks' whose marched samples exceed the budget."""
+    return (f"{sum(s > r * spr for r, s in seen)} of {len(seen)} chunks, "
+            f"marched samples per ray up to "
+            f"{max(s / r for r, s in seen):.1f} (budget {spr})")
+
+
+class FirstCall(Patch):
+    """While active, the wrappers of the kernels `names` are recorded
+    (`record_kernels`) during the first call of owner.name only: the
+    first render chunk's or probe chunk's launches."""
+
+    def __init__(self, owner, name, cfg, names):
+        super().__init__(owner, name)
+        self.cfg, self.names = cfg, names
+        self.recs = None
+
+    def call(self, *a, **k):
+        if self.recs is not None:
+            return self.fn(*a, **k)
+        self.recs = record_kernels(self.cfg, self.names)
+        try:
+            return self.fn(*a, **k)
+        finally:
+            for r in self.recs.values():
+                r.restore()
+
+    def checks(self, what):
+        """Each recorded variant against its plain version (CHECKS)."""
+        import torch
+        with torch.no_grad():
+            return {name: {f"{what}, {tag}": CHECKS[name](a, f"{what}, {tag}")
+                           for tag, (a, _) in r.calls.items()}
+                    for name, r in self.recs.items()}
+
+
+def read_ply_vertices(path):
+    """(vertex count, face count, (V, 3) float32 vertices) of a binary
+    PLY as render/mesh.py writes it; the body's length must match."""
+    import numpy as np
+    data = open(path, "rb").read()
+    head, body = data.split(b"end_header\n", 1)
+    counts = {}
+    for line in head.decode().splitlines():
+        if line.startswith("element "):
+            _, name, n = line.split()
+            counts[name] = int(n)
+    nv, nf = counts["vertex"], counts["face"]
+    if len(body) != 12 * nv + 13 * nf:
+        raise AssertionError(f"{path}: {len(body)} body bytes for {nv} "
+                             f"vertices and {nf} faces")
+    return nv, nf, np.frombuffer(body[:12 * nv], "<f4").reshape(nv, 3)
+
+
+def offline_brick(system):
+    """`render_for_test(hparams, system=...)` and `extract_mesh` on phase
+    "data"'s brick system: views and mesh timed, launches counted, the
+    first render chunk's K1, K2 and K3 forward variants and the first
+    probe chunk's K2 forward held against their plain versions."""
+    import os
+    from ingp_tpu_torch.models.ngp import ngp_sigma
+    from ingp_tpu_torch.render import mesh as mesh_mod
+    from ingp_tpu_torch.render import offline as offline_mod
+    h = system.hparams
+    h.exp_name = "lego_brick"
+    cfg = system.model_cfg
+    te = system.test_dataset
+    w, hh = te.img_wh
+    n = len(te.poses)
+    with FirstCall(offline_mod, "render_rays_test", cfg, FWD) as first, \
+            Span(offline_mod, "render_for_test") as span:
+        out_dir = offline_mod.render_for_test(h, system=system)
+    per_view = {k: span.launches[k] / n for k in FWD}
+    log(f"offline brick render: render_for_test, {n} views of {w}x{hh} in "
+        f"chunks of {h.chunk_size} rays: {span.seconds / n * 1e3:.2f} ms "
+        f"per view, {n * w * hh / span.seconds:,.0f} rays/s; launches per "
+        f"view {per_view}; wrote {sorted(os.listdir(out_dir))}")
+    check_launched({k: span.launches[k] for k in FWD}, "the brick render")
+    checks = first.checks("offline render")
+
+    probe = SimpleNamespace(fn=lambda p, x: ngp_sigma(cfg, p, x))
+    path = os.path.join(out_dir, "mesh.ply")
+    with FirstCall(probe, "fn", cfg, ("brick_reduce",)) as first, \
+            Span(mesh_mod, "extract_mesh") as span, \
+            Clock(mesh_mod, "marching_cubes", sync=True) as iso:
+        verts, faces = mesh_mod.extract_mesh(
+            lambda p, x: probe.fn(p, x), system.params["model"], h.scale,
+            OFFLINE_MESH_RES, OFFLINE_SIGMA, out_path=path)
+    chunks = -(-OFFLINE_MESH_RES[0] * OFFLINE_MESH_RES[1]
+               * OFFLINE_MESH_RES[2] // 2 ** 17)
+    log(f"offline brick mesh: extract_mesh at {OFFLINE_MESH_RES}, sigma "
+        f"{OFFLINE_SIGMA}: {span.seconds:.2f} s ({iso.seconds:.2f} s the "
+        f"isosurface), {len(verts)} vertices, {len(faces)} faces; launches "
+        f"{ {k: span.launches[k] for k in FWD} } over {chunks} probe chunks")
+    check_launched({"brick_reduce": span.launches["brick_reduce"]},
+                   "the brick mesh probe")
+    for name, c in first.checks("offline mesh").items():
+        checks.setdefault(name, {}).update(c)
+    return checks
+
+
+def frame0_against_dump(system, img, dump_png, first_view):
+    """Frame 0 of render_cli against phase "data"'s dump of the same view
+    (`render_image`, whose chunk is capped at 1.5 M samples). The two
+    chunkings give the sigma prepass other sample budgets (rays x
+    samples_per_ray a chunk; the JAX renderer's too), so a chunk whose
+    marched samples exceed its budget drops samples that the other
+    chunking keeps: the difference is reported with the chunks that
+    overflow. The bound: every pixel that differs lies in a chunk that
+    overflowed in one chunking or the other, and frame 0 re-rendered
+    through `render_chunks` at render_image's chunk equals the dump in
+    every value. Returns failures."""
+    import os
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.core.rays import get_rays
+    from ingp_tpu_torch.data.image_io import read_png
+    from ingp_tpu_torch.render.offline import render_chunks
+    dump = read_png(dump_png)
+    spr = system.render_cfg_test.samples_per_ray
+    d = np.abs(img.astype(np.int32) - dump.astype(np.int32))
+    log(f"offline render_cli: frame 0 against the dump "
+        f"{os.path.basename(dump_png)}: {int((d > 0).sum())} of {d.size} "
+        f"values differ, by at most {int(d.max())}; its chunks over the "
+        f"sample budget: {overflows(first_view, spr)}")
+    chunk = min(system.hparams.chunk_size, max(1_500_000 // spr, 4096))
+    te = system.test_dataset
+    pose = torch.as_tensor(te.poses[0], device=system.device)
+    rays_o, rays_d = get_rays(torch.as_tensor(te.directions,
+                                              device=system.device), pose)
+    with budget_taps() as budget:
+        res = render_chunks(system.model_cfg, system.render_cfg_test,
+                            system.params["model"], system.grid["bitfield"],
+                            rays_o, rays_d, chunk,
+                            block_table=system.grid["block_table"])
+    w, h = te.img_wh
+    again = (np.clip(res["rgb"].cpu().numpy().reshape(h, w, 3), 0, 1)
+             * 255).astype(np.uint8)
+    same = int((again != dump).sum())
+    log(f"offline render_cli: frame 0 through render_chunks at "
+        f"render_image's chunk of {chunk} rays: {same} values differ from "
+        f"the dump; chunks over the budget: {overflows(budget.seen, spr)}")
+
+    def over(seen, size):
+        m = np.zeros(w * h, bool)
+        for c, (r, n) in enumerate(seen):
+            m[c * size:c * size + r] |= n > r * spr
+        return m
+    outside = int(((d > 0).any(-1).reshape(-1)
+                   & ~(over(first_view, system.hparams.chunk_size)
+                       | over(budget.seen, chunk))).sum())
+    log(f"offline render_cli: pixels of frame 0 that differ outside the "
+        f"overflowing chunks: {outside}")
+    failures = []
+    if same:
+        failures.append(f"frame 0 at render_image's chunk differs from the "
+                        f"dump in {same} values")
+    if outside:
+        failures.append(f"{outside} pixels of frame 0 differ from the dump "
+                        f"outside the overflowing chunks")
+    return failures
+
+
+def offline_lego(lego_argv, dump_png):
+    """The three CLIs on lego's `last` checkpoint (the hash model of phase
+    "data", in its working directory): render_cli (the 4 test views, an
+    mp4 or the skip line, frame 0 against phase "data"'s dump of the same
+    view), render_panorama_cli and extract_mesh_cli. Returns failures."""
+    import os
+    import shutil
+    import numpy as np
+    from ingp_tpu_torch import (extract_mesh_cli, render_cli,
+                                render_panorama_cli)
+    from ingp_tpu_torch.data.image_io import read_png
+    from ingp_tpu_torch.render import mesh as mesh_mod
+    from ingp_tpu_torch.render import offline as offline_mod
+    from ingp_tpu_torch.render import panorama as panorama_mod
+    failures = []
+    with Span(render_cli, "main") as span, \
+            Clock(offline_mod, "render_chunks", sync=True) as chunks, \
+            Tap(offline_mod, "_load_last", lambda a, k, out: a[0]) as sys_, \
+            budget_taps() as budget:
+        out_dir = render_cli.main(lego_argv)
+    names = sorted(os.listdir(out_dir))
+    frames = [x for x in names if x.endswith("_rgb.png")]
+    n = len(frames)
+    img = read_png(os.path.join(out_dir, frames[0]))
+    hh, w = img.shape[:2]
+    log(f"offline render_cli: lego's last, {n} views of {w}x{hh}: "
+        f"{chunks.seconds / max(n, 1) * 1e3:.2f} ms per view (render_chunks),"
+        f" {n * w * hh / chunks.seconds:,.0f} rays/s, {span.seconds:.2f} s "
+        f"with set-up; launches {span.launches['composite']} K3 fwd; wrote "
+        f"{names}")
+    check_launched({"composite": span.launches["composite"]},
+                   "render_cli")
+    has_mp4 = "rgb.mp4" in names
+    log(f"offline render_cli: rgb.mp4 "
+        f"{'written' if has_mp4 else 'skipped'} (ffmpeg on PATH: "
+        f"{shutil.which('ffmpeg')})")
+    if n != DATA_VIEWS[1] or has_mp4 != bool(shutil.which("ffmpeg")):
+        failures.append(f"render_cli wrote {names}")
+    failures += frame0_against_dump(sys_.seen[0], img, dump_png,
+                                    budget.seen[:len(budget.seen) // n])
+    del sys_
+
+    pano = lego_argv + ["--ckpt_load", "ckpts/nsvf/lego/last", "--pano_h",
+                        str(OFFLINE_PANO_HW[0]), "--pano_w",
+                        str(OFFLINE_PANO_HW[1])]
+    with Span(render_panorama_cli, "main") as span, \
+            Clock(panorama_mod, "render_chunks", sync=True) as chunks:
+        res = render_panorama_cli.main(pano)
+    H, W = OFFLINE_PANO_HW
+    shapes = {sub: read_png(os.path.join(out_dir, "panorama", sub,
+                                         "0.png")).shape
+              for sub in ("rgb", "opacity", "mask")}
+    log(f"offline render_panorama_cli: {H}x{W} in {chunks.seconds:.2f} s "
+        f"(render_chunks), {H * W / chunks.seconds:,.0f} rays/s, "
+        f"{span.seconds:.2f} s with set-up; opacity mean "
+        f"{float(res['opacity'].mean()):.4f}; launches "
+        f"{span.launches['composite']} K3 fwd; PNGs read back {shapes}")
+    check_launched({"composite": span.launches["composite"]},
+                   "render_panorama_cli")
+    if shapes != {"rgb": (H, W, 3), "opacity": (H, W), "mask": (H, W)}:
+        failures.append(f"panorama PNGs {shapes}")
+
+    mesh = lego_argv + ["--ckpt_load", "ckpts/nsvf/lego/last",
+                        "--mesh_resolution",
+                        *(str(r) for r in OFFLINE_MESH_RES),
+                        "--sigma_threshold", str(OFFLINE_SIGMA)]
+    with Span(extract_mesh_cli, "main") as span, \
+            Clock(mesh_mod, "probe_density", sync=True) as probe, \
+            Clock(mesh_mod, "marching_cubes", sync=True) as iso:
+        verts, faces = extract_mesh_cli.main(mesh)
+    nv, nf, v = read_ply_vertices(os.path.join(out_dir, "mesh.ply"))
+    scale = float(np.abs(v).max()) if nv else 0.0
+    log(f"offline extract_mesh_cli: {OFFLINE_MESH_RES}, sigma "
+        f"{OFFLINE_SIGMA}: probe {probe.seconds * 1e3:.1f} ms, isosurface "
+        f"{iso.seconds * 1e3:.1f} ms, {span.seconds:.2f} s with set-up; "
+        f"{len(verts)} vertices, {len(faces)} faces; the .ply header says "
+        f"{nv} / {nf}; largest |coordinate| {scale:.6f}")
+    if (nv, nf) != (len(verts), len(faces)) or nf == 0:
+        failures.append(f"mesh.ply: {nv} vertices, {nf} faces")
+    if scale > 0.5 * (1 + 1e-6):
+        failures.append(f"a mesh vertex lies outside the scene box: {scale}")
+    return failures
+
+
+def offline_tnt(span, traj_frames):
+    """Playground's end-of-run render (`train.main` without
+    --no_save_test in phase "data": the camera path, the mean appearance
+    code, rgb, depth and normal frames) read back, then both aux-head
+    passes on its system. Returns failures."""
+    import os
+    from ingp_tpu_torch.data.image_io import read_pgm, read_png
+    from ingp_tpu_torch.render import aux_heads
+    system = span.result
+    h = system.hparams
+    out_dir = os.path.join("results", h.dataset_name, h.exp_name)
+    names = sorted(os.listdir(out_dir))
+    te = system.test_dataset
+    w, hh = te.img_wh
+    n = len(te.render_traj_rays)
+    want = sorted(f"{i:05d}_{k}.png" for i in range(n)
+                  for k in ("rgb", "depth", "normal"))
+    pngs = [x for x in names if x.endswith(".png")]
+    shapes = {read_png(os.path.join(out_dir, x)).shape for x in pngs}
+    log(f"offline tnt: train.main's end-of-run render of the camera path "
+        f"({n} poses, embed_a {h.embed_a}): {traj_frames.seconds:.2f} s, "
+        f"launches {traj_frames.launches['composite']} K3 fwd; wrote "
+        f"{names}, PNGs of {shapes}")
+    failures = []
+    if pngs != want or shapes != {(hh, w, 3)}:
+        failures.append(f"tnt trajectory frames {names}")
+    if traj_frames.launches["composite"] <= 0:
+        failures.append("the tnt trajectory render launched no K3")
+    model = system.params["model"]
+    args = (system.model_cfg, system.render_cfg_test, model,
+            system.grid["bitfield"], te)
+    emb = system.params["embedding_a"][0:1].detach()
+    with Span(aux_heads, "render_semantic_labels") as sem, \
+            Span(aux_heads, "render_up_normal_masks") as up:
+        d_sem = aux_heads.render_semantic_labels(
+            *args, out_dir, chunk_size=h.chunk_size, embedding_a=emb)
+        d_up = aux_heads.render_up_normal_masks(
+            *args, te.up, out_dir, chunk_size=h.chunk_size, embedding_a=emb)
+    got = {d: sorted(os.listdir(d)) for d in (d_sem, d_up)}
+    shapes = {read_pgm(os.path.join(d, x)).shape
+              for d, xs in got.items() for x in xs}
+    log(f"offline aux heads: semantic labels {sem.seconds:.2f} s, up-normal "
+        f"masks {up.seconds:.2f} s; launches {sem.launches['composite']} / "
+        f"{up.launches['composite']} K3 fwd; wrote {got}, PGMs of {shapes}")
+    check_launched({"composite": sem.launches["composite"]},
+                   "the semantic pass")
+    check_launched({"composite": up.launches["composite"]},
+                   "the up-normal pass")
+    if shapes != {(hh, w)} or [len(x) for x in got.values()] != \
+            [len(te.poses)] * 2:
+        failures.append(f"aux passes wrote {got}")
+    return failures
+
+
+ORACLE_RAYS = 2048
+# the dense oracle's bound in tests/test_render.py: the two quadratures
+# differ (the marcher's dt lattice, the oracle's strata)
+ORACLE_TOL = 0.05
+
+
+def oracle_rays(n, z0, spread):
+    """n rays from z = z0 towards +z through the box centre (seeded),
+    as tests/test_torch_oracle.py casts them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    ro = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                   np.full(n, z0)], -1)
+    rd = np.stack([rng.uniform(-spread, spread, n),
+                   rng.uniform(-spread, spread, n), np.ones(n)], -1)
+    return (torch.as_tensor(ro, dtype=torch.float32, device=DEVICE),
+            torch.as_tensor(rd, dtype=torch.float32, device=DEVICE))
+
+
+def offline_oracles(system):
+    """The render layer's oracles on the card, as
+    tests/test_torch_oracle.py holds them on the CPU: the exact-skip
+    `march_rays` against the lattice and block marchers at the brick
+    system's grid geometry and constant step, on the occupancy grid of
+    the fixtures' sphere scene (ts and deltas to 1e-5, the block march
+    equal to the lattice march on one cascade);
+    the dense `render_rays_oracle` against the test render
+    (`render_rays_test`: the block march, the sample budget, K1-K3
+    forward) on a random field at the system's widths on a full grid
+    with room for every sample, within ORACLE_TOL. Returns failures."""
+    import dataclasses
+    import torch
+    from ingp_tpu_torch.core import prng
+    from ingp_tpu_torch.core.intersect import ray_aabb_intersect
+    from ingp_tpu_torch.data.synthetic import sphere_density_grid
+    from ingp_tpu_torch.grid.occupancy import grid_from_density
+    from ingp_tpu_torch.models.ngp import ngp_init
+    from ingp_tpu_torch.models.oracle import render_rays_oracle
+    from ingp_tpu_torch.models.rendering import (clamp_near,
+                                                 render_rays_test)
+    from ingp_tpu_torch.ops import march
+    cfg = system.model_cfg
+    failures = []
+    mcfg = dataclasses.replace(system.render_cfg_test.march_cfg(cfg),
+                               exp_step_factor=0.0)
+    ro, rd = oracle_rays(ORACLE_RAYS, -2.0, 0.2)
+    hits = clamp_near(ray_aabb_intersect(
+        ro, rd, torch.zeros(3, device=DEVICE),
+        torch.full((3,), cfg.scale, device=DEVICE)))
+    noise = torch.zeros(ORACLE_RAYS, device=DEVICE)
+    grid = grid_from_density(
+        system.grid, torch.as_tensor(sphere_density_grid(
+            cfg.grid_size, cfg.cascades, cfg.scale), device=DEVICE),
+        0.5, cfg.grid_size, cfg.cascades)
+    bits, table = grid["bitfield"], grid["block_table"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    exact = march.march_rays(mcfg, bits, ro, rd, hits, noise)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t
+    lat = march.march_rays_lattice(mcfg, bits, ro, rd, hits, noise)
+    blk = march.march_rays_block(mcfg, table, ro, rd, hits, noise)
+    n_bad = int((lat["n_samples"] != exact["n_samples"]).sum())
+    ts_err = float(((lat["ts"] - exact["ts"]).abs()
+                    - 1e-5 * exact["ts"].abs()).max())
+    dt_err = float(((lat["deltas"] - exact["deltas"]).abs()
+                    - 1e-5 * exact["deltas"].abs()).max())
+    blk_same = all(torch.equal(blk[k], lat[k])
+                   for k in ("ts", "deltas", "valid"))
+    log(f"offline oracle march: {ORACLE_RAYS} rays, {mcfg.grid_size}^3 x "
+        f"{mcfg.cascades} grid, capacity {mcfg.capacity}: exact-skip "
+        f"march_rays {exact_s * 1e3:.1f} ms, {int(exact['total_samples'])} "
+        f"samples; lattice rays with another count {n_bad}, ts beyond "
+        f"rtol 1e-5 by {ts_err:.3g}, deltas by {dt_err:.3g}; block march "
+        f"equal to lattice {blk_same}")
+    if int(exact["total_samples"]) == 0 or n_bad or ts_err > 1e-6 \
+            or dt_err > 0 or (mcfg.cascades == 1 and not blk_same):
+        failures.append("the lattice or block march differs from the "
+                        "exact-skip march")
+
+    params = ngp_init(cfg, prng.prng_key(0), DEVICE)
+    params["density_table"] = params["density_table"] * 2e3
+    full = torch.full_like(bits, -1)
+    full_table = march.build_block_table(full, cfg.grid_size, cfg.cascades)
+    rcfg = dataclasses.replace(system.render_cfg_test, capacity=1024,
+                               march_iters=1104, samples_per_ray=1024,
+                               T_threshold=1e-4, exp_step_factor=0.0)
+    ro, rd = oracle_rays(ORACLE_RAYS, -1.4, 0.1)
+    with torch.no_grad():
+        fast = render_rays_test(cfg, rcfg, params, full, ro, rd,
+                                block_table=full_table)
+        oracle = render_rays_oracle(cfg, params, ro, rd, prng.prng_key(0),
+                                    n_samples=1024)
+    errs = {k: float((fast[k].float() - oracle[k].float()).abs().max())
+            for k in ("opacity", "rgb", "depth")}
+    log(f"offline oracle render: {ORACLE_RAYS} rays, test render (block "
+        f"march, capacity 1024) against the dense oracle (1024 strata) on "
+        f"a random field at the system's widths: max |diff| "
+        f"{ {k: round(v, 5) for k, v in errs.items()} } (bound "
+        f"{ORACLE_TOL}), oracle opacity mean "
+        f"{float(oracle['opacity'].mean()):.3f}")
+    if float(oracle["opacity"].max()) < 0.3 or \
+            max(errs.values()) > ORACLE_TOL:
+        failures.append(f"the test render differs from the dense oracle: "
+                        f"{errs}")
+    return failures
+
+
+def phase_offline(brick, lego_argv, dump_png, tnt_span, traj_frames):
+    """Phase "offline", in phase "data"'s working directory: the brick
+    system's render_for_test and mesh (`offline_brick`), the marchers
+    and the test render against their oracles (`offline_oracles`), the
+    three CLIs on lego's checkpoint (`offline_lego`), Playground's
+    trajectory frames and aux passes (`offline_tnt`). Returns {kernel:
+    {variant: numbers}}; fails if any check failed."""
+    import torch
+    checks = offline_brick(brick)
+    failures = offline_oracles(brick)
+    del brick
+    torch.cuda.empty_cache()
+    failures += offline_lego(lego_argv, dump_png)
+    failures += offline_tnt(tnt_span, traj_frames)
+    if failures:
+        raise AssertionError(f"offline: {failures}")
+    return checks
+
+
 def kernel_rows(render_errs, train_checks, other_checks, launches, probes,
                 probe_launches):
     """The kernels line: each kernel's launches in the timed training
@@ -2543,13 +3042,14 @@ def main(argv):
     probes, probe_launches = phase_probes()
     phase_cli()
     quality_checks, _ = phase_quality()
-    data_checks = phase_data()
+    data_checks, offline_checks = phase_data()
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
     other_checks = {k: {**quality_checks.get(k, {}),
                         **feature_checks.get(k, {}),
-                        **data_checks.get(k, {})} for k in KERNELS}
+                        **data_checks.get(k, {}),
+                        **offline_checks.get(k, {})} for k in KERNELS}
     print(json.dumps({"kernels": kernel_rows(render_errs, train_checks,
                                              other_checks, launches,
                                              probes, probe_launches)}),

@@ -52,3 +52,14 @@ def cell_index(coord, mip, grid_size: int):
     gs = grid_size
     return ((mip * gs + coord[..., 2]) * gs + coord[..., 1]) * gs \
         + coord[..., 0]
+
+
+def cell_exit_t(x, t, coord, bound, rays_d, inv_d, grid_size: int):
+    """March distance t plus the distance to the exit face of the current
+    cell: the next cell boundary along each axis in the marching
+    direction, the nearest of the three, clamped at >= 0."""
+    sgn = torch.where(rays_d >= 0, 0.5, -0.5)
+    face = ((coord.to(torch.float32) + 0.5 + sgn) / grid_size * 2.0 - 1.0) \
+        * bound[..., None]
+    t_side = (face - x) * inv_d
+    return t + torch.clamp(t_side.amin(-1), min=0.0)

@@ -376,6 +376,54 @@ def resize_linear(img: np.ndarray, wh) -> np.ndarray:
     return _drop_single_channel(img, r0 * b0[row] + r1 * b1[row])
 
 
+def _area_taps(src: int, dst: int) -> np.ndarray:
+    """OpenCV's INTER_AREA weights along one axis as a (dst, src) float32
+    matrix (computeResizeAreaTab): destination pixel d covers source
+    [d * scale, (d + 1) * scale), each source pixel weighted by its
+    overlap over the cell's width, overlaps of 1e-3 or less dropped."""
+    scale = src / dst
+    tab = np.zeros((dst, src), np.float32)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        width = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            tab[d, s1 - 1] = (s1 - f1) / width
+        tab[d, s1:s2] = 1.0 / width
+        if f2 - s2 > 1e-3:
+            tab[d, s2] = min(min(f2 - s2, 1.0), width) / width
+    return tab
+
+
+def resize_area(img: np.ndarray, wh) -> np.ndarray:
+    """cv2.resize(img, wh, interpolation=cv2.INTER_AREA) of a float32 (H,
+    W) or (H, W, C) image to a size no larger on either axis: the mean of
+    each k x k block when both factors are whole numbers k, else
+    OpenCV's area-overlap weights, rows then columns (summed in float64
+    where OpenCV sums in float32: within ~1e-7 of it)."""
+    if img.dtype != np.float32:
+        raise ValueError(f"resize_area takes float32, not {img.dtype}")
+    w, h = (int(v) for v in wh)
+    H, W = img.shape[:2]
+    if w > W or h > H:
+        raise ValueError(f"resize_area shrinks only: ({W}, {H}) -> ({w}, "
+                         f"{h})")
+    x = img.reshape(H, W, -1).astype(np.float64)
+    C = x.shape[2]
+    if W % w == 0 and H % h == 0:
+        kx, ky = W // w, H // h
+        out = x.reshape(h, ky, w, kx, C).sum((1, 3)) * (1.0 / (kx * ky))
+    else:
+        rows = _area_taps(H, h).astype(np.float64) @ x.reshape(H, W * C)
+        out = np.einsum("xW,yWc->yxc", _area_taps(W, w).astype(np.float64),
+                        rows.reshape(h, W, C))
+    out = out.astype(np.float32)
+    return out.reshape((h, w) + img.shape[2:]) if img.ndim == 3 \
+        and img.shape[2] != 1 else out.reshape(h, w)
+
+
 def resize_nearest(img: np.ndarray, wh) -> np.ndarray:
     """cv2.resize(img, wh, interpolation=cv2.INTER_NEAREST): source index
     floor(d * src / dst), as OpenCV computes it, capped at the last."""

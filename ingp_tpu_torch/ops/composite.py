@@ -4,7 +4,9 @@ kernel K3 (kernels/composite.py): a sample contributes iff it is valid
 and the transmittance before it exceeds T_threshold,
 w = (1 - e^{-sigma dt}) T; `composite_rays` is differentiable through
 K3's backward. `distortion_loss` and `ref_loss` are plain tensor code
-under autograd, as the JAX package leaves them to XLA and AD.
+under autograd, as the JAX package leaves them to XLA and AD, and so is
+`composite_alpha`, which no render path calls (the JAX package keeps it
+as part of the reference's compositing API).
 """
 from __future__ import annotations
 
@@ -69,3 +71,13 @@ def ref_loss(sigmas, normals_diff, normals_ori, deltas, valid, T_threshold):
     Rp = (ws[None] * normals_diff).sum(-1).T
     Ro = (ws * normals_ori).sum(-1)
     return Ro, Rp
+
+
+def composite_alpha(sigmas, deltas, valid):
+    """Per-sample alphas and weights without the early stop:
+    (alphas (R, S), ws (R, S)), w = (1 - e^{-sigma dt}) T."""
+    sd = torch.where(valid, sigmas * deltas, 0.0)
+    c = torch.cumsum(sd, -1)
+    Ts = torch.exp(-(c - sd))
+    alphas = 1.0 - torch.exp(-sd)
+    return alphas, torch.where(valid, alphas * Ts, 0.0)

@@ -11,6 +11,11 @@ The block marcher reads occupancy from a 16^3-cell neighbourhood row
 per run of `block_q` lattice steps (`build_block_table`); samples whose
 window coordinates leave the row are marked occupied, so it never drops
 a sample the exact march keeps.
+
+`march_rays` is the exact-skip march that both replace: a loop over
+iterations that steps dt in occupied cells and jumps whole dt steps past
+the exit face of an empty one. No render path runs it; it is the
+oracle that the tests hold the lattice and block marchers to.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import math
 import torch
 import torch.nn.functional as nnf
 
-from ..core.cascade import SQRT3, calc_dt, mip_from_dt
+from ..core.cascade import (SQRT3, calc_dt, cell_coord, cell_exit_t,
+                            cell_index, mip_from_dt, mip_from_pos)
 from .pack import as_int32_bits, bitfield_lookup
 
 _BLOCK_WIN = 16      # window cells per axis
@@ -136,6 +142,62 @@ def march_rays_lattice(cfg: MarchConfig, bitfield, rays_o, rays_d, hits_t,
     idx = ((mip * gs + ns[2]) * gs + ns[1]) * gs + ns[0]
     occ = bitfield_lookup(bitfield, idx) & in_range
     return _pack_march(cfg, occ, t_start)
+
+
+def march_rays(cfg: MarchConfig, bitfield, rays_o, rays_d, hits_t, noise):
+    """The exact-skip march of R rays through the occupancy bitfield
+    (counterpart of ingp_tpu/ops/march.py:63-130), same arguments and
+    result as march_rays_lattice: cfg.iters iterations, each either a
+    sample (occupied cell: advance dt) or a skip (empty cell: advance
+    whole dt steps past the cell's exit face, at least one); the
+    occupied iterations fill each ray's first S slots in order."""
+    R = rays_o.shape[0]
+    S, M = cfg.capacity, cfg.iters
+    dev = rays_o.device
+    t1, t2 = hits_t[:, 0], hits_t[:, 1]
+    inv_d = 1.0 / rays_d
+    dt0 = calc_dt(t1, cfg.exp_step_factor, cfg.max_samples, cfg.grid_size,
+                  cfg.scale)
+    t = torch.where(t1 >= 0, t1 + dt0 * noise, t1)
+    cnt = torch.zeros(R, dtype=torch.int32, device=dev)
+    ts_m, dt_m, occ_m = [], [], []
+    for _ in range(M):
+        active = (t >= 0) & (t < t2) & (cnt < S)
+        x = rays_o + t[:, None] * rays_d
+        dt = calc_dt(t, cfg.exp_step_factor, cfg.max_samples, cfg.grid_size,
+                     cfg.scale)
+        mip = torch.maximum(mip_from_pos(x, cfg.cascades),
+                            mip_from_dt(dt, cfg.grid_size, cfg.cascades))
+        coord, bound = cell_coord(x, mip, cfg.grid_size, cfg.scale)
+        occ = bitfield_lookup(bitfield, cell_index(coord, mip,
+                                                   cfg.grid_size)) & active
+        t_exit = cell_exit_t(x, t, coord, bound, rays_d, inv_d,
+                             cfg.grid_size)
+        n_steps = torch.clamp(torch.ceil((t_exit - t) / dt), min=1.0)
+        t_next = torch.where(occ, t + dt, t + n_steps * dt)
+        ts_m.append(t)
+        dt_m.append(dt)
+        occ_m.append(occ)
+        t = torch.where(active, t_next, t)
+        cnt = cnt + occ.to(torch.int32)
+    occ_m = torch.stack(occ_m)                                  # (M, R)
+    slot = torch.cumsum(occ_m.to(torch.int32), 0) - 1
+    ray_ids = torch.arange(R, dtype=torch.int64, device=dev)[None, :]
+    ok = occ_m & (slot < S)
+    flat = (ray_ids * S + slot)[ok]
+    ts = torch.zeros(R * S, dtype=torch.float32, device=dev)
+    deltas = torch.zeros(R * S, dtype=torch.float32, device=dev)
+    ts[flat] = torch.stack(ts_m).to(torch.float32)[ok]
+    deltas[flat] = torch.stack(dt_m).to(torch.float32)[ok]
+    n_samples = torch.clamp(cnt, max=S)
+    valid = torch.arange(S, device=dev)[None, :] < n_samples[:, None]
+    return {
+        "ts": ts.reshape(R, S),
+        "deltas": deltas.reshape(R, S),
+        "valid": valid,
+        "n_samples": n_samples,
+        "total_samples": n_samples.sum(),
+    }
 
 
 def build_block_table(bitfield, grid_size: int, cascades: int):

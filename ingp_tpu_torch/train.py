@@ -5,7 +5,9 @@ Parses the flags (training/config.py), builds `NeRFSystem(hparams)` on
 the card (or on `device`), trains with `fit` into
 ckpts/<dataset_name>/<exp_name> (epoch checkpoints, `last`, `last_slim`)
 unless --val_only, then validates on the test split and prints
-`test/psnr .. test/ssim ..`.
+`test/psnr .. test/ssim ..`; after training, unless --no_save_test, it
+renders the test split (or the camera path) into
+results/<dataset_name>/<exp_name> (`render.offline.render_for_test`).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import os
 
 import numpy as np
 
+from .render.offline import render_for_test
 from .training.config import get_opts
 from .training.trainer import NeRFSystem
 
@@ -20,9 +23,6 @@ from .training.trainer import NeRFSystem
 def _check_ported(h):
     """Raise on what the JAX entry point does and the port does not."""
     off = []
-    if not h.no_save_test and not h.val_only:
-        off.append("the offline test render (pass --no_save_test; "
-                   "ROADMAP.md Queue 1 item 8)")
     if h.distributed or h.coordinator_address:
         off.append("--distributed / --coordinator_address (ROADMAP.md "
                    "Queue 1 item 9)")
@@ -50,6 +50,8 @@ def main(argv=None, device=None):
     metrics = system.validate()
     print(f"test/psnr {metrics['psnr']:.3f}  test/ssim "
           f"{metrics['ssim']:.4f}", flush=True)
+    if not hparams.no_save_test and not hparams.val_only:
+        render_for_test(hparams, system=system)
     return metrics
 
 

@@ -192,8 +192,13 @@ def parse_config_file(path):
     return tokens
 
 
-def get_opts(argv=None):
+def get_opts(argv=None, add_args=None):
+    """The flags of argv (default: the command line), a --config file's
+    values under them; add_args(parser), when given, adds an entry
+    point's own flags first."""
     parser = build_parser()
+    if add_args is not None:
+        add_args(parser)
     args, _ = parser.parse_known_args(argv)
     if args.config:
         cfg_tokens = parse_config_file(args.config)

@@ -37,9 +37,9 @@ from ..models.implicit_mask import mask_apply, mask_init
 from ..models.ngp import (NGPConfig, hash_layout, log_radiance_to_rgb,
                           ngp_init, ngp_sigma, ngp_sigma_cm,
                           params_from_numpy, params_to_numpy, tree_map)
-from ..models.rendering import (MAX_SAMPLES, RenderConfig, render_rays,
-                                render_rays_test)
+from ..models.rendering import MAX_SAMPLES, RenderConfig, render_rays
 from ..ops.march import build_block_table
+from ..render.offline import render_chunks
 from ..utils.ckpt import AsyncCkptManager, load_ckpt, save_ckpt, slim_state
 from ..utils.loggers import make_logger
 from .losses import LossConfig, compute_losses, total_loss
@@ -488,9 +488,8 @@ class NeRFSystem:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def render_image(self, pose, chunk_size=None, embedding=None):
-        """Chunked whole-image test render. The chunk is capped so that
-        chunk * samples_per_ray <= 1.5M network samples; a tail chunk
-        pads up to the full chunk by repeating its last ray. With
+        """Whole-image test render through `render_chunks`, its chunk
+        capped so that chunk * samples_per_ray <= 1.5M network samples. With
         embed_a every ray takes the appearance code `embedding`
         ((1, embed_a_len) or (embed_a_len,); default: image 0's)."""
         chunk = chunk_size or self.hparams.chunk_size
@@ -498,34 +497,13 @@ class NeRFSystem:
         chunk = min(chunk, max(1_500_000 // spr, 4096))
         pose = torch.as_tensor(np.asarray(pose), device=self.device)
         rays_o, rays_d = get_rays(self.directions, pose)
-        n = rays_o.shape[0]
-        emb = None
-        if self.hparams.embed_a:
-            if embedding is None:
-                embedding = self.params["embedding_a"][0:1]
-            emb = torch.as_tensor(embedding, device=self.device
-                                  ).reshape(1, -1).float()
-        outs = []
-        for i in range(0, n, chunk):
-            ro, rd = rays_o[i:i + chunk], rays_d[i:i + chunk]
-            blk = chunk if (i > 0 or n > chunk) else ro.shape[0]
-            pad = blk - ro.shape[0]
-            if pad:
-                ro = torch.cat([ro, ro[-1:].expand(pad, 3)])
-                rd = torch.cat([rd, rd[-1:].expand(pad, 3)])
-            res = render_rays_test(
-                self.model_cfg, self.render_cfg_test, self.params["model"],
-                self.grid["bitfield"], ro.contiguous(), rd.contiguous(),
-                embedding_a=None if emb is None else emb.expand(blk, -1),
-                block_table=self.grid["block_table"])
-            if pad:
-                res = {k: v[:-pad] if v.ndim >= 1 and v.shape[0] == blk
-                       else v for k, v in res.items()}
-            outs.append(res)
-        merged = {k: torch.cat([o[k] for o in outs], 0)
-                  for k in outs[0] if k != "total_samples"}
-        merged["total_samples"] = sum(int(o["total_samples"]) for o in outs)
-        return merged
+        if self.hparams.embed_a and embedding is None:
+            embedding = self.params["embedding_a"][0:1]
+        return render_chunks(
+            self.model_cfg, self.render_cfg_test, self.params["model"],
+            self.grid["bitfield"], rays_o, rays_d, chunk,
+            embedding_a=embedding if self.hparams.embed_a else None,
+            block_table=self.grid["block_table"])
 
     def validate(self, max_images=None):
         """Mean PSNR and SSIM of the test split's views."""

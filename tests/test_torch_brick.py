@@ -16,6 +16,7 @@ from ingp_tpu.ops.pallas.brickreduce_pallas import fused_brick_reduce
 from ingp_tpu_torch.kernels import brickreduce as k2
 from ingp_tpu_torch.kernels import build
 from ingp_tpu_torch.ops import brickgrid as tb
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CFG_ARGS = dict(n_levels=6, n_features=4, log2_bricks=9,
                 base_resolution=8, per_level_scale=1.6)

@@ -35,6 +35,7 @@ from ingp_tpu_torch.kernels import brickreduce as k2
 from ingp_tpu_torch.kernels import composite as k3
 from tests.test_torch_kernel_redesign import (_bf16, cell_cotangents,
                                               k2_tile_samples)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 f32 = np.float32
 LANES = 32           # composite.cu: a warp per ray, a lane per sample

@@ -24,6 +24,7 @@ from ingp_tpu_torch.data.synthetic import SyntheticDataset
 from ingp_tpu_torch.training import trainer as tt
 from ingp_tpu_torch.utils import ckpt
 from tests.test_torch_train import _adam_moments, _leaf_close
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _hparams(**kw):

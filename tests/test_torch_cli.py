@@ -12,6 +12,7 @@ import pytest
 
 from ingp_tpu_torch import quality_synthetic as gate
 from ingp_tpu_torch import train as train_cli
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--steps_per_epoch", "3", "--downsample", "0.125",

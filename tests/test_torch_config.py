@@ -11,6 +11,7 @@ import pytest
 from ingp_tpu.training import config as jc
 from ingp_tpu_torch.data import SyntheticDataset, dataset_dict
 from ingp_tpu_torch.training import config as tc
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.txt")))

@@ -31,6 +31,7 @@ from ingp_tpu_torch.grid.occupancy import grid_from_density, \
 from ingp_tpu_torch.models.rendering import clamp_near as t_clamp_near
 from ingp_tpu_torch.ops import march as tm
 from ingp_tpu_torch.ops import pack as tp
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def T(a):

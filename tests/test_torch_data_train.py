@@ -28,6 +28,7 @@ from ingp_tpu_torch.utils.blender_fixture import (write_blender_scene,
                                                   write_nsvf_scene)
 from tests.test_torch_train import (N, T, _adam_moments, _leaf_close,
                                     hparams)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--density_L", "2", "--rgb_L", "2", "--density_log2T", "10",

@@ -19,6 +19,7 @@ from ingp_tpu_torch.data.synthetic import SyntheticDataset, \
 from ingp_tpu_torch.grid.occupancy import grid_from_density
 from ingp_tpu_torch.training import trainer as tt
 from ingp_tpu_torch.training.trainer import tree_leaves
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _hparams(**kw):
@@ -87,7 +88,6 @@ def test_hparam_honoured_or_refused(hparam, tmp_path):
 # flags of the CLI that `train.main` refuses at its start, with what they
 # would do in the JAX entry point
 CLI_REFUSED = {
-    "save_test": ([], "offline test render"),
     "distributed": (["--no_save_test", "--distributed"], "distributed"),
     "coordinator_address": (["--no_save_test", "--coordinator_address",
                              "localhost:1"], "coordinator_address"),

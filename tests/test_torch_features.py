@@ -45,6 +45,7 @@ from ingp_tpu_torch.data.synthetic import SyntheticDataset
 from ingp_tpu_torch.models import implicit_mask as tmask
 from ingp_tpu_torch.models import ngp as tngp
 from ingp_tpu_torch.ops import ref_util as tref
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=2e-2, atol=2e-3)

@@ -32,6 +32,7 @@ import torch
 
 from ingp_tpu_torch.kernels import build
 from ingp_tpu_torch.probes import gather_layouts as pg
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 L2_THREADS, SLAB_THREADS, SLAB_ROWS = 256, 512, 512
 FLAT_THREADS, FLAT_MAX_BLOCKS = 64, 1056

@@ -38,6 +38,7 @@ from ingp_tpu_torch.kernels import rayreduce as k1
 from ingp_tpu_torch.ops import brickgrid as tb
 from ingp_tpu_torch.ops import composite as tcomp
 from ingp_tpu_torch.ops import streambrick as ts
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 BF16_STEP = 2.0 ** -7
 

@@ -26,6 +26,7 @@ import torch
 from ingp_tpu.ops import hashgrid as jh
 from ingp_tpu_torch.core import prng
 from ingp_tpu_torch.ops import hashgrid as th
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(n_levels=6, log2_hashmap_size=10, base_resolution=4,
           per_level_scale=2.0)

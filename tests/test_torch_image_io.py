@@ -16,6 +16,7 @@ import pytest
 from PIL import Image
 
 from ingp_tpu_torch.data import image_io as io
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(0)
 # cv2's linear resize orders its float32 sums otherwise (a few float32

@@ -25,6 +25,7 @@ import torch
 from ingp_tpu_torch.kernels import composite as k3
 from ingp_tpu_torch.ops import composite as ops
 from tests.test_torch_bwd_redesign import _exp, model_k3_bwd, serial_csum
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 f32 = np.float32
 GROUP = 16           # composite.cu kK3FwdGroup: lanes per ray

@@ -33,6 +33,7 @@ import torch
 from ingp_tpu_torch.kernels import brickreduce as k2
 from ingp_tpu_torch.kernels import rayreduce as k1
 from ingp_tpu_torch.ops.streambrick import _unique_plan_uniform
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CHUNK = 256          # rayreduce.cu kBwdThreads: cells a block stages at once
 K2_THREADS = 256     # brickreduce.cu kK2Threads: cells per K2 tile

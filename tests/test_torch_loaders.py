@@ -23,6 +23,7 @@ from ingp_tpu_torch.data import dataset_dict
 from ingp_tpu_torch.data.image_io import read_png
 from ingp_tpu_torch.data.synthetic import trace_scene
 from ingp_tpu_torch.utils import blender_fixture as fx
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE_TOL = 5e-7
 TRAJ_TOL = 1e-6

@@ -24,6 +24,7 @@ from ingp_tpu_torch.models import ngp as tngp
 from ingp_tpu_torch.ops import composite as tcomp
 from ingp_tpu_torch.ops.activations import trunc_exp as t_trunc_exp
 from ingp_tpu_torch.ops.sh import sh_encode_cm as t_sh
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def T(a):

@@ -19,6 +19,7 @@ from ingp_tpu_torch.core import prng
 from ingp_tpu_torch.data.synthetic import SyntheticDataset
 from ingp_tpu_torch.training import trainer as tt
 from tests.test_torch_faults import _hparams
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _key(k):

@@ -47,6 +47,7 @@ from ingp_tpu_torch.probes import gather_layouts as pg
 from ingp_tpu_torch.probes import kernel_split as ps
 from ingp_tpu_torch.probes import row_layouts as pr
 from ingp_tpu_torch.probes import vmem_gather as pv
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 F, W = 8, 256
 

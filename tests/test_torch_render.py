@@ -24,6 +24,7 @@ from ingp_tpu_torch.data.synthetic import SyntheticDataset, \
 from ingp_tpu_torch.grid.occupancy import grid_from_density
 from ingp_tpu_torch.models import rendering as tr
 from ingp_tpu_torch.training import trainer as tt
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def T(a):

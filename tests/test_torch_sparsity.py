@@ -23,6 +23,7 @@ from ingp_tpu_torch.training import trainer as tt
 from tests.test_torch_train import N, T
 from tests.test_torch_train_variants import (check_step, jax_prior_points,
                                              setup)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_train_step_with_sparsity_prior_matches():

@@ -15,6 +15,7 @@ from ingp_tpu.ops.pallas.rayreduce_pallas import fused_ray_reduce as j_frr
 from ingp_tpu_torch.kernels import rayreduce as k1
 from ingp_tpu_torch.ops import streambrick as ts
 from ingp_tpu_torch.ops.brickgrid import BrickGridConfig as TCfg
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ARGS = dict(n_levels=8, n_features=4, log2_bricks=10, base_resolution=16,
             per_level_scale=1.45)

@@ -72,6 +72,7 @@ from ingp_tpu_torch.models import rendering as tr
 from ingp_tpu_torch.training import losses as tl
 from ingp_tpu_torch.training import metrics as tm
 from ingp_tpu_torch.training import trainer as tt
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 R_BATCH = 256
 

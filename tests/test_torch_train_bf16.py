@@ -22,6 +22,7 @@ import jax
 
 from ingp_tpu_torch.training import trainer as tt
 from tests import test_torch_train as base
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_train_step_grads_match_bf16():

@@ -21,6 +21,7 @@ import pytest
 from tests.test_torch_train import R_BATCH, jax_grouped
 from tests.test_torch_train_features import (BF16_BOUNDS, check_case,
                                              check_step, setup)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", ["random_bg", "hdr, unit anchor"])

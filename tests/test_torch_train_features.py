@@ -55,6 +55,7 @@ from ingp_tpu_torch.training import trainer as tt
 from tests.test_torch_train import (N, R_BATCH, T, _adam_moments,
                                     _leaf_close, _update_close,
                                     _with_moments, hparams, jax_grouped)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 WARMUP = tt.NeRFSystem.WARMUP_STEPS
 

@@ -21,6 +21,7 @@ from ingp_tpu_torch.models import ngp as tngp
 from ingp_tpu_torch.models import rendering as tr
 
 from tests.test_torch_train import N, T, jax_grouped, pair
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_render_rays_train_matches():

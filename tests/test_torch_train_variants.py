@@ -35,6 +35,7 @@ from ingp_tpu_torch.training import trainer as tt
 from tests.test_torch_train import (N, R_BATCH, T, _adam_moments,
                                     _leaf_close, _update_close, hparams,
                                     jax_grouped)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 VARIANTS = {
     "hash": dict(encoder="hash", stream_dedup=False),

@@ -19,6 +19,7 @@ from ingp_tpu.utils import vis as jax_vis
 from ingp_tpu_torch.data.image_io import read_png
 from ingp_tpu_torch.training.trainer import NeRFSystem
 from ingp_tpu_torch.utils import loggers, vis
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(0)
 
