@@ -139,9 +139,29 @@ Phases, each line flushed and stamped with elapsed seconds:
    scene box); then the TNT run's trajectory frames read back and both
    aux-head passes (semantic labels, up-normal masks) on its system,
    each pass's K3 launches counted;
-14. the kernels JSON line (`launches`: the training window's count for
-   the six package kernels, the probes phase's for the probe kernels;
-   `launches_per_train_step` for all), then the result line.
+14. kitti, in a temporary working directory: a KITTI-360 fixture at the
+   dataset's image size (1408x376, both rectified cameras, 16 frames
+   with OXTS, semantic PNGs and .npy normals; the port's own writer);
+   configs/kitti360_nvs_1538.txt less its depth_mono line (no loader
+   gives a mono depth; JAX's step fails on it) through `train.main` for
+   100 steps with its window cut to the fixture's 16 frames and one test
+   frame, the frames loaded at downsample 0.5 (704x188, the uint8
+   resize), to its end-of-run render (every PNG read back); then, on
+   the loaded datasets, 16 steps with --optimize_ext on the config's
+   hash encoder and 16 on the bench's stream-brick encoder
+   (ms per step, losses, launches per step, the pose corrections'
+   norms, which must have moved), the first brick step's launches of the
+   K2 backward's position-cotangent variant held against their plain
+   version on the CPU with their graph time and bytes bound, and 4 brick
+   steps without pose refinement, which must launch it no time; one
+   small step with pose refinement, card against CPU, every gradient
+   leaf (ext's too) to 1e-4 of its largest value; then a highbay fixture
+   through `train.main` for 10 steps;
+15. the kernels JSON line (`launches`: the training window's count for
+   the six package kernels, the probes phase's for the probe kernels,
+   phase 14's stream-brick pose-refinement steps' for the K2 backward's
+   position-cotangent variant; `launches_per_train_step` for all), then
+   the result line.
 
 With --reference-spread, only the device and build phases run, then
 the small card-vs-CPU step of phases "train reference" and "features"
@@ -1682,7 +1702,7 @@ def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
     short). Returns {leaf: error as a fraction of its largest value}."""
     import numpy as np
     from ingp_tpu_torch.data.synthetic import SyntheticDataset
-    from ingp_tpu_torch.training.trainer import NeRFSystem, tree_leaves
+    from ingp_tpu_torch.training.trainer import NeRFSystem
     tr = SyntheticDataset(split="train", img_size=32, n_train=4)
     if unit_exposure_rgb is not None:
         tr.unit_exposure_rgb = unit_exposure_rgb
@@ -1697,6 +1717,16 @@ def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
     rng = np.random.default_rng(batch_seed)
     batch = tr.sample_batch(rng, 512)
     noise = rng.random(512, dtype=np.float32)
+    return hold_step(what, gpu, cpu, batch, noise, check)[0]
+
+
+def hold_step(what, gpu, cpu, batch, noise, check=True):
+    """One step's loss and gradients of a card system and a CPU system
+    on the same batch and noise: with check, the loss to rtol 1e-5 and
+    each gradient leaf to 1e-4 of its largest |value|, norm_net's to 1e-3
+    (see `reference_step`). Returns ({leaf: error as a fraction of its
+    largest value}, the CPU's gradients)."""
+    from ingp_tpu_torch.training.trainer import tree_leaves
     aux_a, ga = gpu.loss_and_grads(batch, noise)
     aux_b, gb = cpu.loss_and_grads(batch, noise)
     la, lb = float(aux_a["loss"]), float(aux_b["loss"])
@@ -1713,11 +1743,12 @@ def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
         if check and not rel <= tol:
             raise AssertionError(f"{what}: gradient {name}: {rel} of its "
                                  f"largest value > {tol}")
-    log(f"{what}: 512 rays, loss {la:.8f} (card) vs {lb:.8f} (cpu); "
-        f"loss terms {sorted(aux_a['loss_terms'])}; gradient leaves agree "
-        f"to {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
+    log(f"{what}: {len(noise)} rays, loss {la:.8f} (card) vs {lb:.8f} "
+        f"(cpu); loss terms {sorted(aux_a['loss_terms'])}; gradient leaves "
+        f"agree to "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
         f" of their largest values")
-    return worst
+    return worst, gb
 
 
 def reference_spread(seeds=range(5, 11)):
@@ -2337,6 +2368,306 @@ def phase_data():
         finally:
             os.chdir(cwd)
     return checks, offline_checks
+
+
+# phase "kitti": configs/kitti360_nvs_1538.txt from a KITTI-360 fixture at
+# the dataset's own image size, pose refinement on the hash and the
+# stream-brick encoders (the K2 backward's position-cotangent variant),
+# and a highbay fixture
+KITTI_CONFIG = "configs/kitti360_nvs_1538.txt"
+KITTI_FRAMES = (1538, 1554)   # the window's 16 frames (the config's 64)
+KITTI_TEST_ID = 1545          # one test frame (the config's 5)
+# the config's run loads the 1408x376 frames at downsample 0.5 (the uint8
+# resize) and takes 100 steps: the grid's warmup sweeps (every 16 steps,
+# 4 cascades of 128^3 cells through the plain hash encoder) and the
+# validation and render of the test views took ~80 s of its 300 steps'
+# ~95 s (PR 16 calls 2-3)
+KITTI_DOWNSAMPLE = 0.5
+# EXT_STEPS: the grid's second warmup sweep comes at step 16, outside
+KITTI_STEPS, EXT_STEPS, HIGHBAY_STEPS = 100, 16, 10
+HIGHBAY_WH = (160, 100)       # 2 valid stereo frames of 4
+# the position-cotangent variant of the K2 backward: its kernels line row
+POS_KERNEL = ("brick_reduce_bwd_pos", "ingp_brick_reduce_bwd_pos",
+              "ingp_tpu_torch/kernels/csrc/brickreduce.cu",
+              "ingp_tpu/ops/pallas/brickreduce_pallas.py:224")
+
+
+def kitti_config_copy(path):
+    """configs/kitti360_nvs_1538.txt without its depth_mono line, written
+    to path: neither the port's nor JAX's kitti loader reads a mono depth,
+    and JAX's step fails on the key (the port refuses it)."""
+    with open(_repo_file(KITTI_CONFIG)) as f:
+        lines = [ln for ln in f if not ln.startswith("depth_mono")]
+    with open(path, "w") as f:
+        f.write("".join(lines))
+    return path
+
+
+def check_k2_bwd_pos(a, tag):
+    """The K2 backward's position-cotangent variant on captured arguments
+    a, against its plain version on the CPU: 1e-5 of the largest |value|
+    (+1e-12); cells marked -9 give exact zeros. Bound: the row id, the 7
+    lf planes, the cotangents of every cell and its (3,) output, and the
+    distinct corner points its cells read."""
+    import torch
+    from ingp_tpu_torch.kernels import brickreduce as k2
+    table, rws, lf, F, dj = a["table"], a["rows"], a["lf"], a["F"], a["djac"]
+    Lw, Nn = rws.shape
+    Fj = 0 if dj is None else dj.shape[2] // Lw
+    cells = Lw * Nn
+    r = rws.reshape(-1)
+    ok = _local_ok(lf) & (r >= 0) & (r < table.shape[0])
+    n_pts = _corner_points(rws, lf, ok)
+    log(f"kernel {POS_KERNEL[0]} [{tag}]: table {tuple(table.shape)} "
+        f"{table.dtype}, rows {tuple(rws.shape)}, jacobian cotangent "
+        f"{dj is not None}; {int(ok.sum())} cells read a row, {n_pts} "
+        f"(row, point) pairs")
+    nbytes = (n_pts * F * table.element_size()
+              + cells * 4 * (1 + 7 + F + 3 * Fj + 3))
+    flops = int(ok.sum()) * 8 * (2 * F + 6 * Fj + 24)
+    res = compare(
+        POS_KERNEL[0], tag, lambda: k2.brick_reduce_bwd_pos(**a),
+        lambda dev: k2.brick_reduce_bwd_pos_plain(**to_dev(a, dev)),
+        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12)
+    marked = torch.zeros(cells, dtype=torch.bool, device=lf.device)
+    marked[::7] = True
+    check_marked(POS_KERNEL[0], tag,
+                 lambda m: (k2.brick_reduce_bwd_pos(**{**a, "lf": m}),
+                            k2.brick_reduce_bwd_pos_plain(**{**a, "lf": m})),
+                 lf, lambda t: t.reshape(3, -1).T)
+    return res
+
+
+def ext_norms(system):
+    import torch
+    return {k: float(torch.linalg.norm(v.detach())) for k, v in
+            system.params["ext"].items()}
+
+
+def ext_steps(what, h, tr, te, steps, record=None):
+    """`steps` training steps of NeRFSystem(h) on the loaded datasets,
+    the launch counts set to 0 after the first (whose position-cotangent
+    launches, with record, are kept): losses, ms per step, launches per
+    step and the pose corrections' norms. Returns (system, launches,
+    step ms, recorder)."""
+    import math
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.kernels import brickreduce as k2
+    from ingp_tpu_torch.kernels import build
+    from ingp_tpu_torch.training.trainer import NeRFSystem
+    system = NeRFSystem(h, tr, te, device=DEVICE)
+    rng = np.random.default_rng(h.seed)
+    rec = None
+    if record:
+        table = table_namer(system.model_cfg)
+        rec = Recorder(k2, "brick_reduce_bwd_pos",
+                       lambda a: table(a["table"], a["djac"] is not None))
+    try:
+        losses = [system.training_step(tr.sample_batch(rng))["loss"]]
+    finally:
+        if rec is not None:
+            rec.restore()
+    torch.cuda.synchronize()
+    clear_counts()
+    t = time.time()
+    for _ in range(steps - 1):
+        losses.append(system.training_step(tr.sample_batch(rng))["loss"])
+    torch.cuda.synchronize()
+    n = steps - 1
+    step_ms = (time.time() - t) / n * 1e3
+    launches = {**launch_counts(),
+                POS_KERNEL[0]: build.LAUNCHES[POS_KERNEL[1]]}
+    losses = [float(v) for v in losses]
+    log(f"{what}: {n} steps x {h.batch_size} rays after the first, encoder "
+        f"{h.encoder}, stream_dedup {h.stream_dedup}, optimize_ext "
+        f"{h.optimize_ext}: {step_ms:.2f} ms/step with host sampling; "
+        f"launches per step "
+        f"{ {k: v / n for k, v in launches.items() if v} }; loss first "
+        f"{losses[0]:.6f}, last {losses[-1]:.6f}, mean of the last 5 "
+        f"{np.mean(losses[-5:]):.6f}"
+        + (f"; |ext| {ext_norms(system)}" if h.optimize_ext else ""))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: non-finite training loss")
+    return system, launches, step_ms, rec
+
+
+def ext_reference_step(kitti_root, argv):
+    """One small f32 step with pose refinement on the kitti fixture (at
+    downsample 0.125) on the card and on the CPU from the same
+    parameters, batch and noise, on the stream-brick encoder: the loss to
+    rtol 1e-5 and each gradient leaf, ext's dR and dT included, to 1e-4
+    of its largest |value| (norm_net's to 1e-3, as `reference_step`).
+    The tables are scaled per level, coarse to fine 1e4 to 10: a smooth
+    field (tests/test_torch_pose_refine.py)."""
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.data import dataset_dict
+    from ingp_tpu_torch.training.config import get_opts
+    from ingp_tpu_torch.training.trainer import NeRFSystem
+    h = get_opts(argv + ["--optimize_ext", "--encoder", "brick",
+                         "--stream_dedup", "--scale", "2.0",
+                         "--batch_size", "512", "--samples_per_ray", "16",
+                         "--capacity", "48", "--march_iters", "256",
+                         "--grid_size", "32", "--density_L", "4",
+                         "--rgb_L", "4", "--density_log2T", "12",
+                         "--rgb_log2T", "12"])
+    h.encode_chunk = 4096
+    kw = dict(root_dir=kitti_root, downsample=0.125, seq_id=h.kitti_seq,
+              frame_start=h.kitti_start, frame_end=h.kitti_end,
+              test_id=h.kitti_test_id, nvs=h.nvs)
+    tr = dataset_dict["kitti"](split="train", **kw)
+    gpu = NeRFSystem(h, tr, device=DEVICE, seed=3)
+    cfg = gpu.model_cfg
+    with torch.no_grad():
+        for name, base in (("density", 1.0), ("rgb", 0.1)):
+            gc = getattr(cfg, f"{name}_brick_cfg")
+            tab = gpu.params["model"][f"{name}_table"]
+            ends = list(gc.offsets[1:]) + [tab.shape[0]]
+            for lvl, (lo, hi) in enumerate(zip(gc.offsets, ends)):
+                tab[lo:hi] *= base * 10.0 ** (4 - lvl)
+    cpu = NeRFSystem(h, tr, device="cpu", seed=3,
+                     params=gpu.params_to_numpy())
+    set_sphere_grid(gpu)
+    set_sphere_grid(cpu)
+    rng = np.random.default_rng(5)
+    batch = tr.sample_batch(rng, 512)
+    _, grads = hold_step(f"kitti ext reference ({tr.n_images} views of "
+                         f"{tr.img_wh})", gpu, cpu, batch,
+                         rng.random(512, dtype=np.float32))
+    dr, dt = (float(grads["ext"][k].abs().max()) for k in ("dR", "dT"))
+    log(f"kitti ext reference: largest |ext gradient| dR {dr:.4e}, dT "
+        f"{dt:.4e}")
+    if not (dr > 0 and dt > 0):
+        raise AssertionError("kitti ext reference: no gradient reached ext")
+
+
+def phase_kitti():
+    """The KITTI-360 and highbay loaders and pose refinement, in a
+    temporary working directory: a KITTI-360 fixture at the dataset's
+    image size (1408x376, both rectified cameras, KITTI_FRAMES' 16 frames
+    with OXTS, semantics and .npy normals; the port's own writer);
+    configs/kitti360_nvs_1538.txt (less its depth_mono line) through
+    `train.main` for KITTI_STEPS steps with its window cut to the
+    fixture's frames and one test frame, the frames loaded at
+    KITTI_DOWNSAMPLE, to its end-of-run render of the test views; on the
+    loaded datasets, EXT_STEPS steps with
+    --optimize_ext on the config's hash encoder and on the stream-brick
+    encoder of the bench (whose first step's position-cotangent launches
+    are held against their plain version on the CPU), and 4 stream-brick
+    steps without it (no position-cotangent launch); one small step with
+    pose refinement, card against CPU; then a highbay fixture through
+    `train.main` for HIGHBAY_STEPS steps. Returns ({kernel: {variant:
+    numbers}}, the position-cotangent kernel's launches and launches per
+    step in the stream-brick pose-refinement run)."""
+    import os
+    import tempfile
+    import torch
+    from ingp_tpu_torch import train as train_cli
+    from ingp_tpu_torch.data import image_io
+    from ingp_tpu_torch.training.config import get_opts
+    from ingp_tpu_torch.utils.street_fixture import (write_highbay_scene,
+                                                     write_kitti_scene)
+    t_phase = time.time()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ingp_kitti_") as tmp:
+        os.chdir(tmp)
+        try:
+            root = os.path.join(tmp, "KITTI-360")
+            t = time.time()
+            write_kitti_scene(root, frames=range(*KITTI_FRAMES))
+            log(f"kitti: wrote the KITTI-360 fixture (frames "
+                f"{KITTI_FRAMES[0]}-{KITTI_FRAMES[1] - 1}, 2 cameras of "
+                f"1408x376, semantics, normals, OXTS) in "
+                f"{time.time() - t:.2f} s")
+            argv = ["--config", kitti_config_copy(
+                        os.path.join(tmp, "kitti360_nvs_1538.txt")),
+                    "--root_dir", root, "--kitti_start",
+                    str(KITTI_FRAMES[0]), "--kitti_end",
+                    str(KITTI_FRAMES[1] - 1), "--kitti_test_id",
+                    str(KITTI_TEST_ID)]
+            argv += ["--downsample", str(KITTI_DOWNSAMPLE)]
+            metrics, span = train_from_disk("kitti", argv + [
+                "--num_epochs", "1", "--normal_epochs", "0",
+                "--steps_per_epoch", str(KITTI_STEPS)], KITTI_STEPS)
+            system = span.result
+            tr, te = system.train_dataset, system.test_dataset
+            out = os.path.join(tmp, "results", "kitti", "kitti360_nvs_1538")
+            names = sorted(os.listdir(out))
+            w, h = te.img_wh
+            for name in names:
+                if name.endswith(".png"):
+                    img = image_io.read_png(os.path.join(out, name))
+                    if img.shape[:2] != (h, w):
+                        raise AssertionError(f"kitti: {name} reads back as "
+                                             f"{img.shape}")
+            if not any(n.endswith("_semantic.png") for n in names):
+                raise AssertionError(f"kitti: the render wrote {names}")
+            log(f"kitti: {type(tr).__name__} train {tr.n_images} views, "
+                f"test {te.n_images}; sun_dir {tr.sun_dir.tolist()}; the "
+                f"end-of-run render wrote {names}, each {w}x{h}")
+            check_launched({"composite": span.launches["composite"],
+                            "composite_bwd": span.launches["composite_bwd"]},
+                           "the kitti run")
+            del span, system
+            torch.cuda.empty_cache()
+
+            h = get_opts(argv + ["--optimize_ext"])
+            system, _, _, _ = ext_steps("kitti ext hash", h, tr, te,
+                                        EXT_STEPS)
+            if not all(v > 0 for v in ext_norms(system).values()):
+                raise AssertionError("kitti ext hash: the poses did not "
+                                     "move")
+            del system
+            h = get_opts(argv + BRICK_FLAGS + ["--optimize_ext"])
+            system, launches, step_ms, rec = ext_steps(
+                "kitti ext brick", h, tr, te, EXT_STEPS, record=True)
+            if not all(v > 0 for v in ext_norms(system).values()):
+                raise AssertionError("kitti ext brick: the poses did not "
+                                     "move")
+            check_launched({k: launches[k] for k in
+                            ("fused_ray_reduce", "brick_reduce",
+                             "fused_ray_reduce_bwd", "brick_reduce_bwd",
+                             POS_KERNEL[0])}, "the kitti ext brick steps")
+            pos_launches = launches[POS_KERNEL[0]]
+            del system
+            with torch.no_grad():
+                checks = {POS_KERNEL[0]: {
+                    f"kitti ext, {tag}": check_k2_bwd_pos(a, f"kitti ext, "
+                                                          f"{tag}")
+                    for tag, (a, _) in rec.calls.items()}}
+            del rec
+            torch.cuda.empty_cache()
+            _, plain_launches, _, _ = ext_steps(
+                "kitti brick", get_opts(argv + BRICK_FLAGS), tr, te, 4)
+            if plain_launches[POS_KERNEL[0]] or \
+                    not plain_launches["brick_reduce_bwd"]:
+                raise AssertionError(f"kitti brick without optimize_ext: "
+                                     f"launches {plain_launches}")
+            del tr, te
+            torch.cuda.empty_cache()
+            ext_reference_step(root, argv)
+
+            hb = os.path.join(tmp, "highbay")
+            t = time.time()
+            write_highbay_scene(hb, img_wh=HIGHBAY_WH, n_images=4,
+                                valid=(1, 2))
+            log(f"kitti highbay: wrote the fixture ({HIGHBAY_WH}, 2 valid "
+                f"stereo frames) in {time.time() - t:.2f} s")
+            _, span = train_from_disk("kitti highbay", [
+                "--dataset_name", "highbay", "--root_dir", hb, "--exp_name",
+                "highbay", "--scale", "2.0", "--num_epochs", "1",
+                "--normal_epochs", "0", "--steps_per_epoch",
+                str(HIGHBAY_STEPS), "--batch_size",
+                "4096", "--no_save_test"], HIGHBAY_STEPS, falling=False)
+            log(f"kitti highbay: {type(span.result.train_dataset).__name__}"
+                f", {span.result.train_dataset.n_images} views of "
+                f"{span.result.train_dataset.img_wh}")
+            del span
+        finally:
+            os.chdir(cwd)
+    log(f"kitti: phase {time.time() - t_phase:.1f} s")
+    return checks, (pos_launches, pos_launches / (EXT_STEPS - 1))
 
 
 def phase_probes():
@@ -3017,6 +3348,23 @@ def kernel_rows(render_errs, train_checks, other_checks, launches, probes,
     return rows
 
 
+def pos_kernel_row(checks, launches, per_step):
+    """The kernels line row of the K2 backward's position-cotangent
+    variant: its launches in phase "kitti"'s stream-brick pose-refinement
+    steps, its largest error over the variants checked, and the numbers
+    of its density-table variant."""
+    p = checks.get("kitti ext, density table, jac",
+                   next(iter(checks.values())))
+    name, _, source, replaces = POS_KERNEL
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_per_train_step": per_step,
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "ms": p["ms"], "graph_ms": p["graph_ms"],
+            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+            "bound_by": p["bound_by"], "library_ms": None}
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -3043,6 +3391,7 @@ def main(argv):
     phase_cli()
     quality_checks, _ = phase_quality()
     data_checks, offline_checks = phase_data()
+    kitti_checks, pos_launches = phase_kitti()
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
@@ -3050,10 +3399,10 @@ def main(argv):
                         **feature_checks.get(k, {}),
                         **data_checks.get(k, {}),
                         **offline_checks.get(k, {})} for k in KERNELS}
-    print(json.dumps({"kernels": kernel_rows(render_errs, train_checks,
-                                             other_checks, launches,
-                                             probes, probe_launches)}),
-          flush=True)
+    rows = kernel_rows(render_errs, train_checks, other_checks, launches,
+                       probes, probe_launches)
+    rows.append(pos_kernel_row(kitti_checks[POS_KERNEL[0]], *pos_launches))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name, "count": count}}),
           flush=True)

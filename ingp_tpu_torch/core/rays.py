@@ -158,6 +158,27 @@ def generate_interpolated_path(poses, n_interp, spline_degree=5,
     return np.stack([vec0, vec1, vec2, p], axis=-1)
 
 
+class PathRays:
+    """The mapping `path_rays(directions, c2w_list)` returns, each entry
+    built when it is read (equal values; entries are not kept): a street
+    scene's 400-pose path at 1408x376 would hold 5 GB of rays."""
+
+    def __init__(self, directions, c2w_list):
+        self.directions = directions
+        self.c2w_list = c2w_list
+
+    def __len__(self):
+        return len(self.c2w_list)
+
+    def __iter__(self):
+        return iter(range(len(self)))
+
+    def __getitem__(self, idx):
+        if not 0 <= idx < len(self):
+            raise KeyError(idx)
+        return path_rays(self.directions, self.c2w_list[idx:idx + 1])[0]
+
+
 def path_rays(directions, c2w_list):
     """{index: (N, 6) float32 rays_o | rays_d} along a camera path, as
     the loaders' get_path_rays build them (get_rays in numpy, float32)."""

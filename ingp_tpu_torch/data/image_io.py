@@ -7,10 +7,15 @@ struct): the reads and resizes that the JAX loaders make through
                   alpha, RGB, RGBA and palette: what imageio.v2.imread
                   returns for the same file
   read_pgm        binary PGM (P5), 8 and 16 bit, big-endian
+  read_u8         what cv2.imread(path) (BGR -> RGB) or, with gray,
+                  cv2.imread(path, IMREAD_GRAYSCALE) gives for a PNG or
+                  PGM: 8 bits per sample (16-bit samples shifted right by
+                  8), colour as RGB, gray as one channel
   image_size      (width, height) from a PNG header
   write_png       8-bit gray, RGB and RGBA, Paeth-filtered rows
   write_pgm       binary PGM (P5), 8 and 16 bit
   resize_linear   cv2.resize(img, (w, h)) (INTER_LINEAR) on float32
+  resize_linear_u8  the same on uint8, OpenCV's fixed-point arithmetic
   resize_nearest  cv2.resize(img, (w, h), interpolation=INTER_NEAREST)
 
 PNG rows are unfiltered by a small C++ helper (csrc/png_unfilter.cpp),
@@ -266,6 +271,29 @@ def read_pgm(path) -> np.ndarray:
     return img.astype(np.uint8 if maxval < 256 else np.uint16)
 
 
+def read_u8(path, gray: bool = False) -> np.ndarray:
+    """An 8-bit PNG or PGM as cv2.imread reads it: (H, W, 3) RGB (the
+    channel order of cv2.imread + COLOR_BGR2RGB; gray expanded, alpha
+    dropped) or, with gray, (H, W) (cv2.IMREAD_GRAYSCALE). 16-bit samples
+    keep their high byte, as OpenCV converts them. A colour image read as
+    gray raises: cv2 would mix its channels, which no loader here asks
+    for."""
+    img = read_pgm(path) if str(path).lower().endswith(".pgm") \
+        else read_png(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if gray:
+        if img.ndim == 3:
+            raise ValueError(f"{path}: a {img.shape[2]}-channel image read "
+                             f"as gray")
+        return img
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, 2)
+    if img.shape[2] == 2:             # gray + alpha
+        return np.repeat(img[..., :1], 3, 2)
+    return np.ascontiguousarray(img[..., :3])
+
+
 # -- writing ---------------------------------------------------------------
 
 def filter_rows(px: np.ndarray, bpp: int, types) -> bytes:
@@ -374,6 +402,62 @@ def resize_linear(img: np.ndarray, wh) -> np.ndarray:
     r1 = bot[:, x0] * a0[col] + bot[:, x1] * a1[col]
     row = (slice(None),) + (None,) * (img.ndim - 1)
     return _drop_single_channel(img, r0 * b0[row] + r1 * b1[row])
+
+
+RESIZE_COEF_SCALE = 2048    # OpenCV's INTER_RESIZE_COEF_SCALE (11 bits)
+
+
+def _linear_taps_u8(src: int, dst: int, clamp: bool = True):
+    """_linear_taps' taps with OpenCV's fixed-point weights: the offset
+    x is rounded to float32 before its floor, and each weight is
+    round-half-even(w * 2048) of the float32 weight. Without clamp (the
+    vertical axis) a tap outside the image keeps its weight and reads the
+    edge row."""
+    scale = 1.0 / (dst / src)
+    x = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(x).astype(np.int64)
+    f = (x - s.astype(np.float32)).astype(np.float32)
+    if not clamp:
+        a1 = np.rint(f * np.float32(RESIZE_COEF_SCALE)).astype(np.int64)
+        a0 = np.rint((np.float32(1) - f) * np.float32(RESIZE_COEF_SCALE)
+                     ).astype(np.int64)
+        return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), a0, a1
+    f[s < 0] = 0.0
+    s[s < 0] = 0
+    f[s >= src - 1] = 0.0
+    s[s >= src - 1] = src - 1
+    a1 = np.rint(f * np.float32(RESIZE_COEF_SCALE)).astype(np.int64)
+    a0 = np.rint((np.float32(1) - f) * np.float32(RESIZE_COEF_SCALE)
+                 ).astype(np.int64)
+    return s, np.minimum(s + 1, src - 1), a0, a1
+
+
+def resize_linear_u8(img: np.ndarray, wh) -> np.ndarray:
+    """cv2.resize(img, wh) with INTER_LINEAR on a uint8 (H, W) or (H, W,
+    C) image, bit for bit: OpenCV's fixed-point form. The horizontal pass
+    sums src * alpha in integers (alpha in 1/2048ths); the vertical pass
+    takes each sum >> 4, multiplies it by beta and keeps the high 16 bits
+    of the product, adds the two rows' terms and rounds >> 2 with +2
+    (its vectorised VResizeLinearVec_32s8u, which the whole row takes),
+    saturated to [0, 255]. Horizontal taps outside the image are clamped
+    to the edge pixel at full weight; vertical ones keep their weights
+    and read the edge row twice, as OpenCV does (which differs in the
+    truncated bits when enlarging)."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_linear_u8 takes uint8, not {img.dtype}")
+    w, h = (int(v) for v in wh)
+    H, W = img.shape[:2]
+    if (w, h) == (W, H):
+        return _drop_single_channel(img, img.copy())
+    x0, x1, a0, a1 = _linear_taps_u8(W, w)
+    y0, y1, b0, b1 = _linear_taps_u8(H, h, clamp=False)
+    x = img.reshape(H, W, -1).astype(np.int64)
+    rows = x[:, x0] * a0[None, :, None] + x[:, x1] * a1[None, :, None]
+    t0 = ((rows[y0] >> 4) * b0[:, None, None]) >> 16
+    t1 = ((rows[y1] >> 4) * b1[:, None, None]) >> 16
+    out = np.clip((t0 + t1 + 2) >> 2, 0, 255).astype(np.uint8)
+    return out.reshape((h, w) + img.shape[2:]) if img.ndim == 3 \
+        and img.shape[2] != 1 else out.reshape(h, w)
 
 
 def _area_taps(src: int, dst: int) -> np.ndarray:

@@ -18,6 +18,15 @@ gathered block to hand a cotangent to). It takes the feature and
 jacobian cotangents at any row stride, so the column slices that
 `torch.cat`'s backward hands over need no copy. `BrickReduceFn` binds
 forward and backward into a `torch.autograd.Function`.
+
+The backward's position-cotangent variant (`brick_reduce_bwd_pos`,
+`ingp_brick_reduce_bwd_pos` in `csrc/brickreduce.cu`) gives each cell's
+cotangent of its fractional position frac (lf rows 3-5), which JAX's
+XLA form of the reduce (`brickgrid.reduce_feats` / `reduce_feats_jac`)
+carries through AD and its Pallas form drops (`_fbr_bwd` returns a zero
+lf cotangent). `BrickReduceFn` launches it, beside the table backward,
+only when lf requires a gradient: with pose refinement, whose sample
+positions depend on the refined poses.
 """
 from __future__ import annotations
 
@@ -119,6 +128,47 @@ def trilerp_rows_bwd_plain(lf, df, dj, F: int, W: int, jac_lo: int = 0,
         dg = torch.where(in_win[None], dg + t * lf[6][:, None], dg)
     ok = ((lf[0:3] >= 0) & (lf[0:3] <= 1)).all(0)
     return torch.where(ok[:, None] & (li >= 0)[None], dg, 0.0)
+
+
+def trilerp_rows_pos_bwd_plain(g, lf, df, dj, F: int, jac_lo: int = 0,
+                               Fj: int | None = None):
+    """Cotangent (3, n) of the fractional positions lf[3:6] of cells
+    reading brick rows g (n, W) at lf (8, n), from the feature cotangent
+    df (n, F) and the jacobian cotangent dj (3, n, Fj) or None:
+
+      dfrac_a = sum_corner d_a w_b w_c <v, df>
+                + scale * (d_a d_b w_c <v_j, dj_b> + d_a d_c w_b <v_j, dj_c>)
+
+    for each of the 8 corner points v (F features; v_j its jacobian
+    window), {a, b, c} the three axes, w the corner's weight along an
+    axis and d = dw / dfrac = -1 or +1 (the trilinear weight has no
+    second derivative along one axis). Cells outside [0, 1] (the -9
+    marker) get exact zeros."""
+    Fj = F - jac_lo if Fj is None else Fj
+    n = g.shape[0]
+    loc, fr, sc = lf[0:3], lf[3:6], lf[6]
+    ok = ((loc >= 0) & (loc <= 1)).all(0)
+    li = loc.clamp(0, 1).to(torch.int64)
+    pts = g[:, :27 * F].float().reshape(n, 27, F)
+    ar = torch.arange(n, device=g.device)
+    out = torch.zeros((3, n), device=g.device)
+    for corner in _CORNERS:
+        v = pts[ar, 9 * (li[0] + corner[0]) + 3 * (li[1] + corner[1])
+                + (li[2] + corner[2])]
+        w = [fr[k] if corner[k] else 1.0 - fr[k] for k in range(3)]
+        d = [1.0 if corner[k] else -1.0 for k in range(3)]
+        s_df = (v * df).sum(1)
+        if dj is not None:
+            vj = v[:, jac_lo:jac_lo + Fj]
+            s_j = [(vj * dj[k]).sum(1) for k in range(3)]
+        for a in range(3):
+            b, c = (a + 1) % 3, (a + 2) % 3
+            term = d[a] * w[b] * w[c] * s_df
+            if dj is not None:
+                term = term + sc * d[a] * (d[b] * w[c] * s_j[b]
+                                           + d[c] * w[b] * s_j[c])
+            out[a] += term
+    return torch.where(ok[None], out, 0.0)
 
 
 def round_bf16(x):
@@ -289,6 +339,77 @@ def brick_reduce_bwd(grad, rows, lf, dfeats, djac, F: int, jac_lo: int = 0,
     return grad
 
 
+def brick_reduce_bwd_pos_plain(table, rows, lf, dfeats, djac, F: int,
+                               jac_lo: int = 0, jac_hi: int | None = None):
+    """Plain PyTorch version of `brick_reduce_bwd_pos` (same contract),
+    PLAIN_CHUNK cells at a time."""
+    Fj = _jac_window(F, jac_lo, jac_hi)
+    Lw, N = rows.shape
+    out = torch.empty((3, Lw, N), device=table.device)
+    step = max(1, PLAIN_CHUNK // max(Lw, 1))
+    for n0 in range(0, N, step):
+        sl = slice(n0, min(n0 + step, N))
+        c = sl.stop - n0
+        r = rows[:, sl].reshape(-1).to(torch.int64)
+        in_table = (r >= 0) & (r < table.shape[0])
+        g = table[r.clamp(0, table.shape[0] - 1)]
+        lfc = lf[:, :, sl].reshape(8, -1)
+        lfc = torch.cat([torch.where(in_table, lfc[:3], -9.0), lfc[3:]])
+        dfc = dfeats[sl].reshape(c, Lw, F).transpose(0, 1).reshape(-1, F)
+        djc = None if djac is None else \
+            djac[:, sl].reshape(3, c, Lw, Fj).transpose(1, 2).reshape(
+                3, -1, Fj)
+        out[:, :, sl] = trilerp_rows_pos_bwd_plain(
+            g, lfc, dfc, djc, F, jac_lo, Fj).reshape(3, Lw, c)
+    return out
+
+
+def brick_reduce_bwd_pos(table, rows, lf, dfeats, djac, F: int,
+                         jac_lo: int = 0, jac_hi: int | None = None):
+    """The cotangent of `brick_reduce`'s fractional positions: (3, Lw, N)
+    f32, each cell's d loss / d lf[3:6] from the feature cotangent
+    dfeats (N, Lw*F) and the jacobian cotangent djac (3, N, Lw*Fj) or
+    None (their rows contiguous, other strides free), reading the 8
+    corner points of its row of `table` (f32 or bf16 storage) as the
+    forward did. Cells marked -9, or whose row lies outside the table,
+    get exact zeros. No atomics: each cell writes its own three
+    floats."""
+    if table.device.type == "cpu":
+        return brick_reduce_bwd_pos_plain(table, rows, lf, dfeats, djac, F,
+                                          jac_lo, jac_hi)
+    if table.device.type != "cuda":
+        raise ValueError(f"brick_reduce_bwd_pos: unsupported device "
+                         f"{table.device}")
+    Fj = _jac_window(F, jac_lo, jac_hi)
+    dev = table.device
+    build.check_cuda_tensor("table", table, (torch.float32, torch.bfloat16),
+                            2, dev, align=16)
+    build.check_cuda_tensor("rows", rows, (torch.int32,), 2, dev)
+    build.check_cuda_tensor("lf", lf, (torch.float32,), 3, dev)
+    Lw, N = rows.shape
+    W = table.shape[1]
+    if F not in SUPPORTED_F or W < 27 * F or W % 8:
+        raise ValueError(f"brick_reduce_bwd_pos: unsupported F={F}, W={W}")
+    if lf.shape != (8, Lw, N):
+        raise ValueError(f"lf shape {tuple(lf.shape)} != (8, {Lw}, {N})")
+    _check_rows("dfeats", dfeats, (N, Lw * F), dev)
+    dj_strides = (0, 0)
+    if djac is not None:
+        _check_rows("djac", djac, (3, N, Lw * Fj), dev)
+        dj_strides = djac.stride()[:2]
+    out = torch.empty((3, Lw, N), device=dev)
+    if Lw * N == 0:
+        return out
+    with torch.cuda.device(dev):
+        build.launch("ingp_brick_reduce_bwd_pos", build.ptr(table),
+                     int(table.dtype == torch.bfloat16), table.shape[0],
+                     build.ptr(rows), build.ptr(lf), build.ptr(dfeats),
+                     dfeats.stride(0), build.ptr(djac), *dj_strides,
+                     build.ptr(out), Lw, N, W, F, int(djac is not None),
+                     jac_lo, Fj, build.stream_of(dev))
+    return out
+
+
 def _check_rows(name, t, shape, dev) -> int:
     """A cotangent handed to `brick_reduce_bwd`: f32 on dev of `shape`,
     each row (the last axis) contiguous, at any outer strides. Returns 1
@@ -314,12 +435,15 @@ def rows_unit_stride(t):
 
 class BrickReduceFn(torch.autograd.Function):
     """`brick_reduce` on a table read (ops/gather.py `TableRead`),
-    differentiable w.r.t. the f32 master table behind it.
+    differentiable w.r.t. the f32 master table behind it and, where lf
+    requires a gradient, w.r.t. lf's fractional positions.
 
     Inputs: the read's token (the autograd link to the master), its
     gradient sink, the storage table that the forward kernel reads, and
     the `brick_reduce` arguments. The backward runs `brick_reduce_bwd`
-    into the sink's f32 accumulator; rows and lf get no gradient."""
+    into the sink's f32 accumulator and, when lf needs a gradient,
+    `brick_reduce_bwd_pos` for lf rows 3-5 (the other rows, the local
+    cell and the scale, get zeros); rows get none."""
 
     @staticmethod
     def forward(ctx, token, sink, storage, rows, lf, F, with_jac, jac_lo,
@@ -329,6 +453,8 @@ class BrickReduceFn(torch.autograd.Function):
         ctx.save_for_backward(rows, lf)
         ctx.cfg = (sink, F, jac_lo, jac_hi,
                    storage.dtype == torch.bfloat16)
+        # the table is read again only by the position cotangent
+        ctx.storage = storage if ctx.needs_input_grad[4] else None
         if jac is None:
             return feats, feats.new_empty(0)
         return feats, jac
@@ -338,9 +464,17 @@ class BrickReduceFn(torch.autograd.Function):
         rows, lf = ctx.saved_tensors
         sink, F, jac_lo, jac_hi, bf16 = ctx.cfg
         dj = rows_unit_stride(djac) if djac.numel() else None
-        brick_reduce_bwd(sink.buffer(), rows, lf, rows_unit_stride(dfeats),
-                         dj, F, jac_lo, jac_hi, bf16)
-        return (sink.token_grad(),) + (None,) * 8
+        df = rows_unit_stride(dfeats)
+        brick_reduce_bwd(sink.buffer(), rows, lf, df, dj, F, jac_lo, jac_hi,
+                         bf16)
+        dlf = None
+        if ctx.storage is not None:
+            dpos = brick_reduce_bwd_pos(ctx.storage, rows, lf, df, dj, F,
+                                        jac_lo, jac_hi)
+            zero = dpos.new_zeros((1,) + tuple(dpos.shape[1:]))
+            dlf = torch.cat([zero.expand(3, -1, -1), dpos,
+                             zero.expand(2, -1, -1)])
+        return (sink.token_grad(), None, None, None, dlf) + (None,) * 4
 
 
 def brick_reduce_read(read, rows, lf, F: int, with_jac: bool = True,

@@ -71,6 +71,24 @@
 //      training launch's cells).
 // The vector atomics still take most of the time left (the split's
 // no-atomics stub).
+//
+// K2 backward's position-cotangent variant (ingp_brick_reduce_bwd_pos):
+// each (level, sample) cell's cotangent of its fractional position frac,
+// which JAX's XLA form of the reduce gives through AD (its Pallas form,
+// _fbr_bwd, returns a zero lf cotangent). With pose refinement the
+// sample positions depend on the refined poses, so the wrapper launches
+// it beside ingp_brick_reduce_bwd whenever lf requires a gradient; no
+// other run launches it. Per cell, over its 8 corner points v:
+//   dfrac_a = sum d_a w_b w_c <v, df>
+//             + scale * (d_a d_b w_c <v_j, dj_b> + d_a d_c w_b <v_j, dj_c>)
+// ({a, b, c} the axes, w the corner's weight along an axis, d = dw/dfrac
+// = -1 or +1; the trilinear weight has no pure second derivative), the
+// jacobian term on the window [jac_lo, jac_lo + Fj). A simple form: a
+// thread per cell, level-major, so its row id, lf and output accesses
+// are coalesced; it reads its 8 corners as the forward does and its
+// cotangent rows at the caller's strides. Each cell writes its own three
+// floats: no atomics. Cells marked -9 (or whose row lies outside the
+// table) write exact zeros.
 #include "trilerp.cuh"
 
 namespace {
@@ -463,7 +481,145 @@ int dispatch_bwd(int with_jac, int bf16, void* grad, int64_t n_rows,
 #undef BWD_ARGS
 }
 
+constexpr int kPosThreads = 256;
+
+template <typename T, int F, bool JAC>
+__global__ void __launch_bounds__(kPosThreads)
+    brick_reduce_bwd_pos_kernel(const T* __restrict__ table, int64_t n_rows,
+                                const int* __restrict__ rows,
+                                const float* __restrict__ lf,
+                                const float* __restrict__ df,
+                                int64_t df_stride,
+                                const float* __restrict__ dj,
+                                int64_t dj_plane, int64_t dj_stride,
+                                float* __restrict__ dpos, int Lw, int64_t N,
+                                int W, int jac_lo, int Fj) {
+  const int64_t n_cells = (int64_t)Lw * N;
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_cells) return;
+  const int l = (int)(c / N);
+  const int64_t n = c - (int64_t)l * N;
+  const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
+  const int r = rows[c];
+  float g[3] = {0.f, 0.f, 0.f};
+  if (ingp_local_ok(lx, ly, lz) && r >= 0 && r < n_rows) {
+    const float fr[3] = {lf[3 * n_cells + c], lf[4 * n_cells + c],
+                         lf[5 * n_cells + c]};
+    const float sc = lf[6 * n_cells + c];
+    float dfv[F], djv[3][F];
+    const float* dfc = df + n * df_stride + (int64_t)l * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) dfv[f] = dfc[f];
+    if (JAC) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float* djc = dj + k * dj_plane + n * dj_stride + (int64_t)l * Fj;
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          djv[k][f] = (f >= jac_lo && f < jac_lo + Fj) ? djc[f - jac_lo]
+                                                       : 0.f;
+      }
+    }
+    const T* row = table + (int64_t)r * W;
+    const int ix = (int)lx, iy = (int)ly, iz = (int)lz;
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      const int o[3] = {corner >> 2, (corner >> 1) & 1, corner & 1};
+      float v[F];
+      ingp_load_point<T, F>(
+          row + (9 * (ix + o[0]) + 3 * (iy + o[1]) + (iz + o[2])) * F, v);
+      float s_df = 0.f, s_j[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        s_df = fmaf(v[f], dfv[f], s_df);
+        if (JAC) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) s_j[k] = fmaf(v[f], djv[k][f], s_j[k]);
+        }
+      }
+      float w[3], d[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        w[k] = o[k] ? fr[k] : 1.f - fr[k];
+        d[k] = o[k] ? 1.f : -1.f;
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int b = (a + 1) % 3, e = (a + 2) % 3;
+        float t = d[a] * w[b] * w[e] * s_df;
+        if (JAC)
+          t += sc * d[a] * (d[b] * w[e] * s_j[b] + d[e] * w[b] * s_j[e]);
+        g[a] += t;
+      }
+    }
+  }
+  dpos[c] = g[0];
+  dpos[n_cells + c] = g[1];
+  dpos[2 * n_cells + c] = g[2];
+}
+
+template <typename T, int F>
+int launch_bwd_pos(const void* table, int64_t n_rows, const void* rows,
+                   const void* lf, const void* df, int64_t df_stride,
+                   const void* dj, int64_t dj_plane, int64_t dj_stride,
+                   void* dpos, int Lw, int64_t N, int W, int with_jac,
+                   int jac_lo, int Fj, cudaStream_t s) {
+  const int64_t cells = (int64_t)Lw * N;
+  const unsigned blocks = (unsigned)((cells + kPosThreads - 1) / kPosThreads);
+  auto kernel = with_jac ? brick_reduce_bwd_pos_kernel<T, F, true>
+                         : brick_reduce_bwd_pos_kernel<T, F, false>;
+  kernel<<<blocks, kPosThreads, 0, s>>>(
+      (const T*)table, n_rows, (const int*)rows, (const float*)lf,
+      (const float*)df, df_stride, (const float*)dj, dj_plane, dj_stride,
+      (float*)dpos, Lw, N, W, jac_lo, Fj);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd_pos(int F, const void* table, int64_t n_rows,
+                     const void* rows, const void* lf, const void* df,
+                     int64_t df_stride, const void* dj, int64_t dj_plane,
+                     int64_t dj_stride, void* dpos, int Lw, int64_t N, int W,
+                     int with_jac, int jac_lo, int Fj, cudaStream_t s) {
+#define POS_ARGS                                                        \
+  table, n_rows, rows, lf, df, df_stride, dj, dj_plane, dj_stride, dpos, \
+      Lw, N, W, with_jac, jac_lo, Fj, s
+  switch (F) {
+    case 2: return launch_bwd_pos<T, 2>(POS_ARGS);
+    case 4: return launch_bwd_pos<T, 4>(POS_ARGS);
+    case 8: return launch_bwd_pos<T, 8>(POS_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef POS_ARGS
+}
+
 }  // namespace
+
+// table (n_rows, W) of dtype t_bf16 ? bf16 : f32; rows (Lw, N) int32;
+// lf (8, Lw, N) f32; df (N, Lw*F) f32 with row stride df_stride floats;
+// dj (3, N, Lw*Fj) f32 with plane and row strides dj_plane, dj_stride
+// floats, or null; dpos (3, Lw, N) f32, written. Returns
+// cudaGetLastError() after the launch (0 = success).
+extern "C" int ingp_brick_reduce_bwd_pos(const void* table, int t_bf16,
+                                         int64_t n_rows, const void* rows,
+                                         const void* lf, const void* df,
+                                         int64_t df_stride, const void* dj,
+                                         int64_t dj_plane, int64_t dj_stride,
+                                         void* dpos, int Lw, int64_t N,
+                                         int W, int F, int with_jac,
+                                         int jac_lo, int Fj, void* stream) {
+  if ((int64_t)Lw * N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return t_bf16
+             ? dispatch_bwd_pos<__nv_bfloat16>(F, table, n_rows, rows, lf,
+                                               df, df_stride, dj, dj_plane,
+                                               dj_stride, dpos, Lw, N, W,
+                                               with_jac, jac_lo, Fj, s)
+             : dispatch_bwd_pos<float>(F, table, n_rows, rows, lf, df,
+                                       df_stride, dj, dj_plane, dj_stride,
+                                       dpos, Lw, N, W, with_jac, jac_lo, Fj,
+                                       s);
+}
 
 // grad (n_rows, W) f32, 16-byte aligned rows, accumulated into; rows
 // (Lw, N) int32; lf (8, Lw, N) f32; df (N, Lw*F) f32 with row stride

@@ -6,7 +6,9 @@ encoder; the per-ray appearance codes follow the sort and the compaction
 to the samples) -> scatter back -> composite (K3) -> Ref-NeRF composites
 and distortion -> inverse permute -> background (`_finish_render`,
 :81-93: a fixed or random colour, or the skybox behind its gate, in the
-caller's ray order). Differentiable w.r.t. the parameters.
+caller's ray order). Differentiable w.r.t. the parameters and, through
+the sample positions and directions (the march's t values held fixed),
+w.r.t. the rays.
 
 Test (`render_rays_test`, :320-427): intersect -> march -> sigma prepass
 -> visibility cut -> full forward -> composite -> skybox background,
@@ -120,6 +122,14 @@ def clamp_near(hits_t):
 
 def _march(model_cfg, render_cfg, bitfield, rays_o, rays_d, noise,
            block_table):
+    """The march's samples (ts, deltas, valid) of the rays, held fixed
+    w.r.t. them: pose refinement's gradient reaches the rays through the
+    sample positions o + t d alone. JAX's march takes stop-gradient rays
+    too (ingp_tpu/models/rendering.py:160-167) but not its entry points
+    hits_t, so for a camera outside the scene's box its t values carry a
+    gradient through the box intersection; inside the box the entry
+    clamps to NEAR_DISTANCE and carries none (ROADMAP.md Queue 3)."""
+    rays_o, rays_d = rays_o.detach(), rays_d.detach()
     dev = rays_o.device
     hits_t = clamp_near(ray_aabb_intersect(
         rays_o, rays_d, torch.zeros(3, device=dev),

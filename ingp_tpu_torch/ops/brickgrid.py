@@ -11,7 +11,9 @@ The trilerp reduce runs in kernel K2 (kernels/brickreduce.py), which
 takes the table and the row ids and gathers inside the kernel; it
 stands for ingp_tpu's gather followed by `reduce_feats(_jac)`. The
 encoders are differentiable w.r.t. the f32 master table through K2's
-backward (ops/gather.py `table_read`); positions get no gradient.
+backward (ops/gather.py `table_read`) and w.r.t. the positions through
+its position-cotangent variant (`frac = pos - pos_grid` keeps the
+autograd link from `level_lf` back to x).
 """
 from __future__ import annotations
 

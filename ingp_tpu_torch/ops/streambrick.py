@@ -20,8 +20,10 @@ block first. This is the grouped path, the TPU default
 
 Both encoders are differentiable w.r.t. the f32 master table: every K1
 and K2 launch of one call reads one `table_read`, and their backward
-kernels add into its single f32 accumulator. Positions get no gradient
-(the marcher stops it in the JAX package too).
+kernels add into its single f32 accumulator. The positions get the
+direct levels' gradient (K2's position-cotangent variant) and none from
+the dedup levels: K1's backward gives lf no cotangent, as JAX's
+`_frr_bwd` returns a zero one.
 """
 from __future__ import annotations
 

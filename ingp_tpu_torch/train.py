@@ -25,9 +25,9 @@ def _check_ported(h):
     off = []
     if h.distributed or h.coordinator_address:
         off.append("--distributed / --coordinator_address (ROADMAP.md "
-                   "Queue 1 item 9)")
+                   "Queue 1 item 5)")
     if h.num_gpus > 1:
-        off.append("--num_gpus > 1 (ROADMAP.md Queue 1 item 9)")
+        off.append("--num_gpus > 1 (ROADMAP.md Queue 1 item 5)")
     if h.debug_nans:
         off.append("--debug_nans")
     if off:

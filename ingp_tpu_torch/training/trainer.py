@@ -3,7 +3,8 @@ hparams -> config mapping (:46-113), and `NeRFSystem` on one device --
 parameters, optimiser, occupancy grid, the training step (:233-406) with
 the sparsity prior (:279-295), the model features (appearance
 embeddings, the transient mask, the random background, the skybox behind
-its warmup gate, the HDR unit-exposure anchor; :261-315), the grid
+its warmup gate, the HDR unit-exposure anchor, pose refinement
+(`optimize_ext`: :165-181, :251-256); :261-315), the grid
 refresh cadence, `render_image` (:584-658), `validate` (:660-707), the
 training loop `fit` (:709-834) and the checkpoint state (:864-935).
 
@@ -13,10 +14,15 @@ then optax's chain clip_by_global_norm(50) -> adam(cosine decay,
 eps 1e-8) written out: the clip by hand (optax scales by 50/|g| only
 when |g| >= 50, with no epsilon), torch.optim.Adam for the moments, and
 the learning rate of update t computed from t, the count of updates
-before it. The loop writes the JAX loop's validation images
-(`_dump_val_images`, :836-861). The shard_map path, the cap
-auto-calibration, the native batch loader and pose refinement
-(`optimize_ext`) are not ported.
+before it. With `optimize_ext` the per-image pose corrections
+params["ext"] = {"dR", "dT"} (zeros, (N_images, 3)) rotate and shift the
+batch's poses before the rays are cast, and take their own constant Adam
+at 1e-6 after the shared clip (optax.multi_transform in JAX): the
+second parameter group of the optimiser. Their gradient reaches them
+through the sample positions; the march's t values are held fixed (see
+`models/rendering.py`). The loop writes the JAX loop's validation
+images (`_dump_val_images`, :836-861). The shard_map path, the cap
+auto-calibration and the native batch loader are not ported.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core import prng
-from ..core.rays import get_rays
+from ..core.rays import axisangle_to_R, get_rays
 from ..device import resolve_device
 from ..grid.occupancy import (grid_draws, grid_init, mark_invisible_cells,
                               update_density_grid)
@@ -48,6 +54,7 @@ from .metrics import mse, psnr, ssim
 REAL_DATASETS = ("colmap", "nerfpp", "tnt", "kitti", "mega", "highbay")
 SPARSITY_POINTS = 16384     # uniform points of the sparsity prior
 VAL_DUMP_EVERY = 10000      # the JAX loop's validation image cadence
+EXT_LR = 1e-6               # the pose corrections' constant Adam rate
 
 
 def model_config_from_hparams(h) -> NGPConfig:
@@ -136,7 +143,7 @@ def tree_leaves(tree, prefix=()):
 
 def _check_ported(h):
     """Raise on training features the port does not have yet."""
-    off = [k for k in ("optimize_ext",) if getattr(h, k, False)]
+    off = []
     if getattr(h, "stream_head_frac", 0.0) > 0:
         off.append("stream_head_frac")
     if not getattr(h, "stream_sort", True):
@@ -150,11 +157,30 @@ def _check_ported(h):
 
 
 def _datasets_from_hparams(h):
-    """(train, test) datasets that hparams name (JAX trainer :133-148)."""
+    """(train, test) datasets that hparams name (JAX trainer :133-148),
+    kitti's with its sequence, frame window, test frames and nvs."""
     from ..data import dataset_dict
     ctor = dataset_dict[h.dataset_name]
     kw = dict(root_dir=h.root_dir, downsample=h.downsample)
+    if h.dataset_name == "kitti":
+        kw.update(seq_id=h.kitti_seq, frame_start=h.kitti_start,
+                  frame_end=h.kitti_end, test_id=h.kitti_test_id, nvs=h.nvs)
     return ctor(split=h.split, **kw), ctor(split="test", **kw)
+
+
+def _check_depth(loss_cfg, train_dataset):
+    """Refuse depth_mono on a dataset without mono depth: the JAX step
+    indexes the batch's "depth" (ingp_tpu/training/losses.py:151-152) and
+    fails with a KeyError inside its jitted step. The kitti and highbay
+    loaders read no depth, so configs/kitti360_nvs_1538.txt, which sets
+    depth_mono, fails there in JAX."""
+    if loss_cfg.depth_mono and not hasattr(train_dataset, "depths_2d"):
+        raise ValueError(
+            f"depth_mono is set, but the {type(train_dataset).__name__} "
+            f"train split has no mono depth (depths_2d): the depth loss "
+            f"would index a batch key its sampler never writes, where the "
+            f"JAX step fails with KeyError 'depth' (ROADMAP.md Queue 3); "
+            f"drop depth_mono")
 
 
 def _host_array(x):
@@ -184,8 +210,9 @@ class NeRFSystem:
         PRNGKey(step), so one seed gives the JAX system's draws (default:
         `hparams.seed`, or 0 where the namespace has none).
       params: optional numpy tree {"model": ngp_init tree, "embedding_a":
-        (N_images, embed_a_len)[, "msk": mask_init tree]} (the JAX
-        system's `params`, in its layouts) to start from.
+        (N_images, embed_a_len)[, "msk": mask_init tree][, "ext": {"dR",
+        "dT"} (N_images, 3)]} (the JAX system's `params`, in its layouts)
+        to start from; with optimize_ext and no "ext", zero corrections.
     """
 
     WARMUP_STEPS = 256
@@ -207,6 +234,7 @@ class NeRFSystem:
         self.render_cfg = render_config_from_hparams(hparams)
         self.render_cfg_test = render_config_from_hparams(hparams, test=True)
         self.loss_cfg = loss_config_from_hparams(hparams)
+        _check_depth(self.loss_cfg, train_dataset)
         self.train_dataset = train_dataset
         self.test_dataset = test_dataset
         train_dataset.batch_size = getattr(hparams, "batch_size", 8192)
@@ -227,14 +255,25 @@ class NeRFSystem:
                 params["msk"] = mask_init(k_msk, dev)
         else:
             params = params_from_numpy(params, dev, self.model_cfg)
+        self.optimize_ext = bool(getattr(hparams, "optimize_ext", False))
+        if self.optimize_ext and "ext" not in params:
+            n = train_dataset.n_images
+            params["ext"] = {"dR": torch.zeros((n, 3), device=dev),
+                             "dT": torch.zeros((n, 3), device=dev)}
         self.params = tree_map(lambda t: t.float().requires_grad_(), params)
         self.total_steps = (getattr(hparams, "num_epochs", 1)
                             + getattr(hparams, "normal_epochs", 0)) \
             * getattr(hparams, "steps_per_epoch", 1000)
         self.lr = getattr(hparams, "lr", 1e-2)
-        self.optimizer = torch.optim.Adam(
-            [t for _, t in tree_leaves(self.params)], lr=self.lr,
-            betas=(0.9, 0.999), eps=1e-8)
+        # group 0 at the cosine rate (set before every update); the pose
+        # corrections in a group of their own at EXT_LR
+        leaves = tree_leaves(self.params)
+        groups = [{"params": [t for k, t in leaves if k[0] != "ext"]}]
+        if self.optimize_ext:
+            groups.append({"params": [t for k, t in leaves
+                                      if k[0] == "ext"], "lr": EXT_LR})
+        self.optimizer = torch.optim.Adam(groups, lr=self.lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
         cfg = self.model_cfg
         w, h = train_dataset.img_wh
         self.poses = torch.as_tensor(train_dataset.poses, device=dev)
@@ -289,8 +328,15 @@ class NeRFSystem:
         b = {k: self._on_device(v) for k, v in batch.items()
              if k in self.BATCH_KEYS}
         img = b["img_idxs"].long()
+        pose = self.poses[img]
+        if self.optimize_ext:
+            # pose refinement: R <- axisangle_to_R(dR) R, t <- t + dT
+            ext = p["ext"]
+            rot = axisangle_to_R(ext["dR"][img]) @ pose[..., :3]
+            pose = torch.cat([rot, (pose[..., 3] + ext["dT"][img])[..., None]],
+                             -1)
         rays_o, rays_d = get_rays(self.directions[b["pix_idxs"].long()],
-                                  self.poses[img])
+                                  pose)
         draws = None
         if (h.random_bg and bg_color is None) or (
                 self.loss_cfg.lambda_sparsity > 0 and sparsity_points is None):
@@ -591,7 +637,7 @@ class NeRFSystem:
         if use_native_loader:
             raise NotImplementedError(
                 "the native batch loader is not ported yet (ROADMAP.md "
-                "Queue 1 item 7)")
+                "Queue 1 item 4)")
         if getattr(h, "profile_dir", None):
             raise NotImplementedError("profile_dir is not ported yet")
         rng = rng or np.random.default_rng(h.seed)

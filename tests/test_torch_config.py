@@ -2,15 +2,18 @@
 package's (ingp_tpu/training/config.py): `get_opts` gives the same
 namespace, field by field, on every configs/*.txt, on no config, and
 with command-line flags overriding a config's values; and the port's
-dataset registry."""
+dataset registry (kitti and highbay build on fixtures, mega refused)."""
 import glob
 import os
 
 import pytest
 
 from ingp_tpu.training import config as jc
-from ingp_tpu_torch.data import SyntheticDataset, dataset_dict
+from ingp_tpu_torch.data import (HighbayDataset, KittiDataset,
+                                 SyntheticDataset, dataset_dict)
 from ingp_tpu_torch.training import config as tc
+from ingp_tpu_torch.utils.street_fixture import (write_highbay_scene,
+                                                 write_kitti_scene)
 from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,12 +50,22 @@ def test_get_opts_matches_without_config():
         CONFIGS[0])
 
 
-def test_dataset_registry():
+def test_dataset_registry(tmp_path):
     assert set(dataset_dict) == {"nerf", "nsvf", "colmap", "nerfpp", "tnt",
                                  "kitti", "mega", "highbay", "synthetic"}
     ds = dataset_dict["synthetic"](split="test", root_dir=None,
                                    downsample=0.125)
     assert isinstance(ds, SyntheticDataset) and ds.img_wh == (16, 16)
-    for name in ("kitti", "mega", "highbay"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            dataset_dict[name](split="train", root_dir="x", downsample=1.0)
+    # kitti and highbay build on fixtures; mega is the one still refused
+    write_kitti_scene(str(tmp_path / "k"), frames=range(2, 6),
+                      img_wh=(22, 6))
+    ds = dataset_dict["kitti"](split="train", root_dir=str(tmp_path / "k"),
+                               downsample=1.0, frame_start=2, frame_end=5)
+    assert isinstance(ds, KittiDataset) and ds.rays.shape == (8, 132, 3)
+    write_highbay_scene(str(tmp_path / "h"), img_wh=(12, 8), n_images=4,
+                        valid=(0, 3))
+    ds = dataset_dict["highbay"](split="train", root_dir=str(tmp_path / "h"),
+                                 downsample=1.0)
+    assert isinstance(ds, HighbayDataset) and ds.rays.shape == (8, 96, 3)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        dataset_dict["mega"](split="train", root_dir="x", downsample=1.0)

@@ -477,6 +477,36 @@ def test_k2_bwd_tiles_bitwise(cuda, bf16, Lw, N, F, window, with_dj):
     assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,window,with_dj", [
+    (8, (0, None), True), (4, (1, 3), True), (8, (0, None), False),
+    (2, (0, None), True)])
+def test_k2_bwd_pos_matches_plain(cuda, dtype, F, window, with_dj):
+    """The K2 backward's position-cotangent variant: strided cotangents,
+    -9 cells and rows outside the table (exact zeros), jacobian windows,
+    f32 and bf16 tables, ragged N; one launch each."""
+    rng = np.random.default_rng(13)
+    jac_lo, jac_hi = window
+    Fj = (F if jac_hi is None else jac_hi) - jac_lo
+    Lw, N, R = 5, 3001, 400
+    on = _k2b_case(rng, Lw, N, F, Fj, R, False, with_dj)
+    table = torch.from_numpy(rng.normal(size=(R, 32 * F)).astype(
+        np.float32)).to(dtype)
+    ref = k2.brick_reduce_bwd_pos_plain(table, *on("cpu"), F, jac_lo,
+                                        jac_hi)
+    n0 = build.LAUNCHES["ingp_brick_reduce_bwd_pos"]
+    out = k2.brick_reduce_bwd_pos(table.to(cuda), *on(cuda), F, jac_lo,
+                                  jac_hi)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ingp_brick_reduce_bwd_pos"] == n0 + 1
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * scale + 1e-12
+    rows, lf = on("cpu")[:2]
+    dead = (lf[0] < 0) | (rows >= R)
+    assert dead.any() and not bool(out.cpu()[:, dead].any())
+
+
 @pytest.mark.parametrize("with_dj", [True, False])
 def test_k2_bwd_matches_old_body(cuda, with_dj):
     """The redesigned K2 backward against the body it replaced (the K2

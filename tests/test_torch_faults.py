@@ -1,7 +1,8 @@
 """The port's trainer reads every hparam the JAX trainer reads, or refuses
 it: `seed` seeds the port's generator (an explicit `seed=` still wins),
-`ckpt_load` loads its checkpoint, and `stream_autocal`, `eval_lpips`,
-`stream_head_frac`, `optimize_ext` and the `fused` encoder, which the
+`ckpt_load` loads its checkpoint, `optimize_ext` adds the pose
+corrections and their optimiser group, and `stream_autocal`,
+`eval_lpips`, `stream_head_frac` and the `fused` encoder, which the
 port has not ported, raise NotImplementedError instead of being dropped;
 so do the CLI flags that `ingp_tpu_torch.train.main` cannot honour yet,
 and a dataset's per-ray exposure (JAX's own step fails on it). The model
@@ -78,6 +79,22 @@ def test_hparam_honoured_or_refused(hparam, tmp_path):
         assert _same(_params(h), [t.detach() for _, t in
                                   tree_leaves(saved.params)])
         assert not _same(_params(h), _params(_hparams()))
+        return
+    if hparam == "optimize_ext":
+        # honoured: zero corrections per image in their own Adam group at
+        # 1e-6, moved by a step
+        tr = SyntheticDataset(split="train", img_size=8, n_train=2)
+        system = tt.NeRFSystem(_hparams(optimize_ext=True), tr,
+                               device="cpu")
+        ext = system.params["ext"]
+        assert {k: tuple(v.shape) for k, v in ext.items()} == {
+            "dR": (2, 3), "dT": (2, 3)}
+        assert not any(v.any() for v in ext.values())
+        assert [g["lr"] for g in system.optimizer.param_groups][1] == 1e-6
+        system.training_step(tr.sample_batch(np.random.default_rng(0), 256))
+        assert all(v.abs().max() > 0 for v in ext.values())
+        assert "ext" not in tt.NeRFSystem(_hparams(), tr,
+                                          device="cpu").params
         return
     kw = {"encoder": "fused"} if hparam == "fused" else \
         {hparam: 0.5 if hparam == "stream_head_frac" else True}
