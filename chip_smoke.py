@@ -2207,10 +2207,11 @@ def train_from_disk(what, argv, steps, falling=True):
     return metrics, span
 
 
-def data_brick(argv, tr, te):
-    """The lego config of argv with the bench's brick model (BRICK_FLAGS)
-    on the loaded lego datasets tr and te: DATA_BRICK_STEPS steps of
-    lego's batch, the first recording its kernel variants, the launch
+def data_brick(argv, tr, te, what="data"):
+    """The config of argv (lego's in phase "data", mega's in phase
+    "mega": `what`) with the bench's brick model (BRICK_FLAGS) on the
+    loaded datasets tr and te: DATA_BRICK_STEPS steps of the config's
+    batch, the first recording its kernel variants, the launch
     counts of the others per step; then each recorded variant held
     against its plain version on the CPU with its times, as in phase
     "train"; the losses must be finite. Returns {kernel: {variant:
@@ -2238,19 +2239,21 @@ def data_brick(argv, tr, te):
     n = DATA_BRICK_STEPS - 1
     step_ms = (time.time() - t) / n * 1e3
     launches = launch_counts()
-    log(f"data brick: {n} steps x {h.batch_size} rays after the first, "
+    log(f"{what} brick: {n} steps x {h.batch_size} rays after the first, "
         f"encoder {h.encoder}, encode_chunk "
         f"{system.model_cfg.encode_chunk}: {step_ms:.2f} ms/step with "
         f"host sampling, {h.batch_size / step_ms * 1e3:.1f} training "
         f"rays/s; launches per step "
         f"{ {k: launches[k] / n for k in KERNELS} }")
-    check_launched({k: launches[k] for k in KERNELS}, "the lego brick steps")
+    check_launched({k: launches[k] for k in KERNELS},
+                   f"the {what} brick steps")
     losses = [float(v) for v in losses]
-    log(f"data brick: loss first step {losses[0]:.6f}, last {losses[-1]:.6f}")
+    log(f"{what} brick: loss first step {losses[0]:.6f}, last "
+        f"{losses[-1]:.6f}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("data brick: non-finite training loss")
+        raise AssertionError(f"{what} brick: non-finite training loss")
     with torch.no_grad():
-        return {name: {f"data, {tag}": CHECKS[name](a, f"data, {tag}")
+        return {name: {f"{what}, {tag}": CHECKS[name](a, f"{what}, {tag}")
                        for tag, (a, _) in r.calls.items()}
                 for name, r in recs.items()}, system
 
@@ -2301,12 +2304,12 @@ def phase_data():
                         str(steps), "--no_save_test", *flags]
             with Clock(NSVFDataset, "read_meta",
                        key=lambda ds, split: split) as load, \
-                    Clock(color_utils, "read_png") as decode, \
+                    Clock(color_utils, "imread") as decode, \
                     Clock(image_io, "unfilter") as unfilter:
                 metrics, span = train_from_disk("data", lego(DATA_STEPS),
                                                 DATA_STEPS)
             log(f"data: load s by split {load.by_key}; per image "
-                f"{decode.ms_per_call():.2f} ms decoding (read_png, "
+                f"{decode.ms_per_call():.2f} ms decoding (imread, "
                 f"{decode.calls} images) of which "
                 f"{unfilter.ms_per_call():.2f} ms unfiltering (the g++ "
                 f"helper)")
@@ -2668,6 +2671,235 @@ def phase_kitti():
             os.chdir(cwd)
     log(f"kitti: phase {time.time() - t_phase:.1f} s")
     return checks, (pos_launches, pos_launches / (EXT_STEPS - 1))
+
+
+# phase "mega": Mega-NeRF's loader on a scene the port writes at Mill19's
+# image size (baseline JPEGs through the port's own codec), trained at
+# Mega-NeRF's Mill19 scale with the bench's stream-brick encoder, and the
+# two out-of-memory ray stores
+MEGA_WH = (4608, 3456)         # Mill19's frames (mega_fixture.MILL19_WH)
+MEGA_FRAMES = (4, 1)           # train, val
+MEGA_DOWNSAMPLE = 0.25         # 1152x864, the scale Mega-NeRF trains at
+MEGA_STEPS = 300
+MEGA_QUALITY = 95
+MEGA_PSNR = 35.0               # decoded full-size frame against its pixels
+# small JPEGs (h, w) for the helper against the plain decoder: partial
+# MCUs on both edges, one MCU, one pixel
+MEGA_SMALL = ((37, 53), (17, 33), (16, 16), (1, 1))
+# the test render's cut: the test split is the 4 train frames at
+# 1152x864, and after 300 steps the grid is still about half occupied (its
+# refresh keeps max(0.95 x old, new) every 16 steps), so every ray fills
+# its capacity; on an H100 (700 W) the validation and the end-of-run
+# render took ~30 s a view at the bench's capacity 48 and 24 samples a
+# ray, ~11 s at 16 and 8. These flags cut the samples a ray to 8 marched
+# and 4 kept, in training and in the render alike
+MEGA_CUT = ["--capacity", "8", "--samples_per_ray", "4"]
+MEGA_CHUNKS = 8                # FilesystemDataset chunks
+MEGA_FLUSH = 400_000           # rays a flush (3 flushes of one frame)
+MEGA_BUDGET_S = 150.0
+
+
+def mega_small_jpegs():
+    """The JPEG helper built by g++ (timed), then write_jpeg's files at
+    MEGA_SMALL sizes, 4:4:4 and 4:2:0, each decoded by the helper
+    (read_jpeg_bytes) and by decode_jpeg_plain: they must be equal byte
+    for byte. Returns the build's seconds."""
+    import numpy as np
+    from ingp_tpu_torch.data import image_io
+    from ingp_tpu_torch.utils import mega_fixture
+    t = time.time()
+    image_io.build_helper("jpeg")
+    build_s = time.time() - t
+    pose = mega_fixture.scene_poses(3)[1]
+    n = 0
+    for h, w in MEGA_SMALL:
+        img = mega_fixture.frame(pose, (w, h))
+        for sub in ("4:4:4", "4:2:0"):
+            data = image_io.encode_jpeg(img, MEGA_QUALITY, sub)
+            got = image_io.read_jpeg_bytes(data)
+            ref = image_io.decode_jpeg_plain(data)
+            if got.shape != ref.shape or not np.array_equal(got, ref):
+                raise AssertionError(f"mega: the JPEG helper's decode of a "
+                                     f"{w}x{h} {sub} file differs from the "
+                                     f"plain decoder's")
+            n += 1
+    log(f"mega: the JPEG helper (data/csrc/jpeg_decode.cpp) built by g++ "
+        f"in {build_s:.2f} s; {n} small JPEGs ({MEGA_SMALL} h x w, "
+        f"4:4:4 and 4:2:0, quality {MEGA_QUALITY}) decode equal to "
+        f"decode_jpeg_plain")
+    return build_s
+
+
+def mega_stores(root, tmp):
+    """FilesystemDataset (through load_filesystem_dataset: every 20th
+    train frame, here the first, at MEGA_DOWNSAMPLE) and MemoryDataset on
+    the same frame: write and load times; every ray stored once (the
+    chunks' pixel indices are a permutation of the frame's); a store
+    built again on the same directory reuses its chunks, and set_state
+    returns to a chunk by name with the same rays."""
+    import os
+    from pathlib import Path
+    import numpy as np
+    from ingp_tpu_torch.data.mega import dataset as mds
+    from ingp_tpu_torch.data.mega import filesystem_dataset as mfs
+    from ingp_tpu_torch.data.mega.memory_dataset import MemoryDataset
+    sf = int(1 / MEGA_DOWNSAMPLE)
+    chunk_dir = os.path.join(tmp, "mega_chunks")
+    kw = dict(near=1.0, far=1e5, chunk_paths=[chunk_dir],
+              num_chunks=MEGA_CHUNKS, scale_factor=sf,
+              disk_flush_size=MEGA_FLUSH)
+    t = time.time()
+    fs = mds.load_filesystem_dataset(root, **kw)
+    write_s = time.time() - t
+    t = time.time()
+    rows, states, pix = 0, [], []
+    for _ in range(MEGA_CHUNKS):
+        fs.load_chunk()
+        rows += len(fs)
+        states.append(fs.get_state())
+        pix.append(mfs.read_chunk(Path(fs.get_state()))["pixel_indices"])
+    load_s = (time.time() - t) / MEGA_CHUNKS
+    w, h = MEGA_WH[0] // sf, MEGA_WH[1] // sf
+    if rows != w * h or not np.array_equal(np.sort(np.concatenate(pix)),
+                                           np.arange(w * h)):
+        raise AssertionError(f"mega stores: {rows} rays in the chunks, not "
+                             f"each of the frame's {w * h} once")
+    fs.set_state(states[2])
+    third = fs._loaded_rays.copy()
+    real = mfs.FilesystemDataset._write_chunks
+    mfs.FilesystemDataset._write_chunks = None  # a rewrite would fail
+    try:
+        again = mds.load_filesystem_dataset(root, **kw)
+    finally:
+        mfs.FilesystemDataset._write_chunks = real
+    again.load_chunk()
+    again.set_state(states[2])
+    if again.get_state() != states[2] or \
+            not np.array_equal(again._loaded_rays, third):
+        raise AssertionError("mega stores: the resumed store's chunk differs")
+    items = mds.get_image_metadata(root, scale_factor=sf)[0]
+    t = time.time()
+    mem = MemoryDataset(items, fs._near, fs._far, None, True)
+    mem_s = time.time() - t
+    if len(mem) != rows:
+        raise AssertionError(f"mega stores: MemoryDataset holds {len(mem)} "
+                             f"rays, the chunks {rows}")
+    batch = mem.sample_batch(np.random.default_rng(0), 4096)
+    if not np.isfinite(batch["rays"]).all():
+        raise AssertionError("mega stores: non-finite rays")
+    log(f"mega stores: FilesystemDataset of {len(items)} frame at {w}x{h}: "
+        f"{MEGA_CHUNKS} chunks (.npy columns, pixel indices) written in "
+        f"{write_s:.2f} s (decode, Lanczos, {-(-rows // MEGA_FLUSH)} "
+        f"flushes), {load_s * 1e3:.1f} ms a chunk to load (rays rebuilt); "
+        f"{rows} rays, each once; reused and resumed at chunk "
+        f"{os.path.basename(states[2])}; MemoryDataset in {mem_s:.2f} s")
+
+
+def phase_mega():
+    """Mega-NeRF on the card, in a temporary working directory: small
+    JPEGs, the C++ helper against the plain decoder (`mega_small_jpegs`);
+    a Mega-NeRF scene at Mill19's 4608x3456 (MEGA_FRAMES train and val
+    frames, baseline JPEG at MEGA_QUALITY, 4:2:0, the port's own encoder)
+    and one frame decoded at full size against its pixels (PSNR at least
+    MEGA_PSNR); `train.main` with --dataset_name mega at MEGA_DOWNSAMPLE
+    (the frames load at 1152x864 through the JPEG decoder and the
+    Lanczos resize) and the bench's stream-brick encoder for MEGA_STEPS
+    steps, its samples a ray cut by MEGA_CUT, its validation of the test
+    split (the train frames) and its end-of-run render; the load's
+    seconds split into decode and Lanczos;
+    on the loaded datasets, the first step's K1-K3 launches against
+    their plain versions (`data_brick`); then the ray stores
+    (`mega_stores`). Returns {kernel: {variant: numbers}}."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.data import image_io
+    from ingp_tpu_torch.data.mega import dataset as mds
+    from ingp_tpu_torch.data.mega import image_metadata
+    from ingp_tpu_torch.utils import mega_fixture
+    t_phase = time.time()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ingp_mega_") as tmp:
+        os.chdir(tmp)
+        try:
+            mega_small_jpegs()
+            root = os.path.join(tmp, "mill19", "scene")
+            t = time.time()
+            info = mega_fixture.write_mega_scene(
+                root, *MEGA_FRAMES, img_wh=MEGA_WH, quality=MEGA_QUALITY)
+            log(f"mega: wrote the scene ({MEGA_FRAMES[0]} train + "
+                f"{MEGA_FRAMES[1]} val frames of {MEGA_WH[0]}x{MEGA_WH[1]}, "
+                f"JPEG quality {MEGA_QUALITY} 4:2:0) in "
+                f"{time.time() - t:.2f} s with {os.cpu_count()} processes")
+            path = os.path.join(root, "train", "rgbs", "000000.jpg")
+            t = time.time()
+            img = image_io.read_jpeg(path)
+            dec_s = time.time() - t
+            t = time.time()
+            image_io.resize_lanczos(img, (int(MEGA_WH[0] * MEGA_DOWNSAMPLE),
+                                          int(MEGA_WH[1] * MEGA_DOWNSAMPLE)))
+            lz_s = time.time() - t
+            ref = mega_fixture.frame(info["poses"][0], MEGA_WH)
+            mse = float(((img.astype(np.float64) - ref) ** 2).mean())
+            psnr = 10 * np.log10(255 ** 2 / max(mse, 1e-12))
+            log(f"mega: one {MEGA_WH[0]}x{MEGA_WH[1]} frame "
+                f"({os.path.getsize(path)} bytes): decode {dec_s * 1e3:.1f} "
+                f"ms, Lanczos to 1/{int(1 / MEGA_DOWNSAMPLE)} "
+                f"{lz_s * 1e3:.1f} ms; PSNR {psnr:.2f} dB against the "
+                f"written pixels")
+            if not psnr >= MEGA_PSNR:
+                raise AssertionError(f"mega: the decoded frame is at {psnr} "
+                                     f"dB, under {MEGA_PSNR}")
+            del img, ref
+
+            argv = ["--dataset_name", "mega", "--root_dir", root,
+                    "--downsample", str(MEGA_DOWNSAMPLE), "--exp_name",
+                    "mega", "--num_epochs", "1", "--normal_epochs", "0",
+                    "--steps_per_epoch", str(MEGA_STEPS), "--render_rgb"]
+            with Clock(mds.MegaDataset, "__init__",
+                       key=lambda *a, **k: k.get("split")) as load, \
+                    Clock(image_metadata, "read_rgb") as decode, \
+                    Clock(image_metadata, "resize_lanczos") as lanczos:
+                metrics, span = train_from_disk(
+                    "mega", argv + BRICK_FLAGS + MEGA_CUT, MEGA_STEPS)
+            log(f"mega: load s by split {load.by_key}; per frame "
+                f"{decode.ms_per_call():.1f} ms decoding ({decode.calls} "
+                f"frames) and {lanczos.ms_per_call():.1f} ms Lanczos")
+            launches = {k: span.launches[k] / MEGA_STEPS for k in KERNELS}
+            check_launched({k: span.launches[k] for k in KERNELS},
+                           "the mega run")
+            system = span.result
+            tr, te = system.train_dataset, system.test_dataset
+            w, h = tr.img_wh
+            if (w, h) != tuple(int(v * MEGA_DOWNSAMPLE) for v in MEGA_WH) \
+                    or tr.rays.shape[0] != MEGA_FRAMES[0]:
+                raise AssertionError(f"mega: {tr.rays.shape[0]} frames of "
+                                     f"{tr.img_wh}")
+            out = os.path.join(tmp, "results", "mega", "mega")
+            names = sorted(os.listdir(out))
+            for name in names:
+                shape = image_io.read_png(os.path.join(out, name)).shape
+                if shape != (h, w, 3):
+                    raise AssertionError(f"mega: {name} reads back as "
+                                         f"{shape}")
+            if len(names) != len(te.poses):
+                raise AssertionError(f"mega: the render wrote {names}")
+            floor = const_psnr(te)
+            log(f"mega: K1-K3 launches per step {launches}; test psnr "
+                f"{metrics['psnr']:.4f} against {floor:.4f} for the "
+                f"constant image; the end-of-run render wrote {names}")
+            del span, system
+            torch.cuda.empty_cache()
+            checks, _ = data_brick(argv, tr, te, what="mega")
+            del tr, te
+            torch.cuda.empty_cache()
+            mega_stores(root, tmp)
+        finally:
+            os.chdir(cwd)
+    took = time.time() - t_phase
+    log(f"mega: phase {took:.1f} s (budget {MEGA_BUDGET_S:.0f} s)")
+    return checks
 
 
 def phase_probes():
@@ -3392,13 +3624,15 @@ def main(argv):
     quality_checks, _ = phase_quality()
     data_checks, offline_checks = phase_data()
     kitti_checks, pos_launches = phase_kitti()
+    mega_checks = phase_mega()
     if "--profile" in argv:
         phase_profile(system, ds, train_system)
     log(f"done in {time.time() - T0:.1f} s")
     other_checks = {k: {**quality_checks.get(k, {}),
                         **feature_checks.get(k, {}),
                         **data_checks.get(k, {}),
-                        **offline_checks.get(k, {})} for k in KERNELS}
+                        **offline_checks.get(k, {}),
+                        **mega_checks.get(k, {})} for k in KERNELS}
     rows = kernel_rows(render_errs, train_checks, other_checks, launches,
                        probes, probe_launches)
     rows.append(pos_kernel_row(kitti_checks[POS_KERNEL[0]], *pos_launches))

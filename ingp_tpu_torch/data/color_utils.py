@@ -1,11 +1,12 @@
 """Image, normal and semantic reads of the loaders (counterpart of
 ingp_tpu/data/color_utils.py:9-60), through the port's own codec
-(image_io) where the JAX package calls imageio and cv2."""
+(image_io) where the JAX package calls imageio and cv2: PNG, JPEG and PGM
+files are told apart by their first bytes, as imageio tells them."""
 from __future__ import annotations
 
 import numpy as np
 
-from .image_io import read_pgm, read_png, resize_linear, resize_nearest
+from .image_io import imread, resize_linear, resize_nearest
 
 
 def srgb_to_linear(img):
@@ -22,9 +23,9 @@ def linear_to_srgb(img):
 
 
 def _read_unit(path, wh):
-    """A PNG in [0, 1] as float32, alpha blended to white, resized to wh
-    (w, h) as cv2.resize does."""
-    img = read_png(path).astype(np.float32) / 255.0
+    """An image in [0, 1] as float32, alpha blended to white, resized to
+    wh (w, h) as cv2.resize does."""
+    img = imread(path).astype(np.float32) / 255.0
     if img.ndim == 3 and img.shape[2] == 4:
         img = img[..., :3] * img[..., -1:] + (1 - img[..., -1:])
     return resize_linear(img, wh)
@@ -50,7 +51,7 @@ def read_normal(norm_path, norm_wh):
 
 def read_normal_up(img_path, img_wh):
     """Binary up-facing mask image -> (h*w,) float32."""
-    img = resize_linear(read_png(img_path).astype(np.float32) / 255.0,
+    img = resize_linear(imread(img_path).astype(np.float32) / 255.0,
                         img_wh)
     return (img.reshape(-1) > 0).astype(np.float32)
 
@@ -58,5 +59,5 @@ def read_normal_up(img_path, img_wh):
 def read_semantic(sem_path, sem_wh, classes=7):
     """Semantic labels (.pgm) -> (h*w,) int64, resized by the nearest
     pixel."""
-    label = resize_nearest(read_pgm(sem_path).astype(np.uint16), sem_wh)
+    label = resize_nearest(imread(sem_path).astype(np.uint16), sem_wh)
     return label.reshape(-1).astype(np.int64)

@@ -2,7 +2,7 @@
 package's (ingp_tpu/training/config.py): `get_opts` gives the same
 namespace, field by field, on every configs/*.txt, on no config, and
 with command-line flags overriding a config's values; and the port's
-dataset registry (kitti and highbay build on fixtures, mega refused)."""
+dataset registry (kitti, highbay and mega build on fixtures)."""
 import glob
 import os
 
@@ -10,8 +10,9 @@ import pytest
 
 from ingp_tpu.training import config as jc
 from ingp_tpu_torch.data import (HighbayDataset, KittiDataset,
-                                 SyntheticDataset, dataset_dict)
+                                 MegaDataset, SyntheticDataset, dataset_dict)
 from ingp_tpu_torch.training import config as tc
+from ingp_tpu_torch.utils.mega_fixture import write_mega_scene
 from ingp_tpu_torch.utils.street_fixture import (write_highbay_scene,
                                                  write_kitti_scene)
 from tests._torch_threads import one_torch_thread  # noqa: F401
@@ -56,7 +57,7 @@ def test_dataset_registry(tmp_path):
     ds = dataset_dict["synthetic"](split="test", root_dir=None,
                                    downsample=0.125)
     assert isinstance(ds, SyntheticDataset) and ds.img_wh == (16, 16)
-    # kitti and highbay build on fixtures; mega is the one still refused
+    # kitti, highbay and mega build on fixtures
     write_kitti_scene(str(tmp_path / "k"), frames=range(2, 6),
                       img_wh=(22, 6))
     ds = dataset_dict["kitti"](split="train", root_dir=str(tmp_path / "k"),
@@ -67,5 +68,8 @@ def test_dataset_registry(tmp_path):
     ds = dataset_dict["highbay"](split="train", root_dir=str(tmp_path / "h"),
                                  downsample=1.0)
     assert isinstance(ds, HighbayDataset) and ds.rays.shape == (8, 96, 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        dataset_dict["mega"](split="train", root_dir="x", downsample=1.0)
+    write_mega_scene(str(tmp_path / "m"), n_train=3, n_val=1,
+                     img_wh=(24, 16))
+    ds = dataset_dict["mega"](split="train", root_dir=str(tmp_path / "m"),
+                              downsample=0.5)
+    assert isinstance(ds, MegaDataset) and ds.rays.shape == (3, 96, 3)

@@ -188,11 +188,15 @@ def test_resize_matches_cv2(src, dst):
 
 
 def test_refused_formats_raise_by_name(tmp_path):
-    Image.fromarray(_pixels((6, 6, 3))).save(tmp_path / "a.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    Image.fromarray(_pixels((6, 6, 3))).save(tmp_path / "a.jpg",
+                                             progressive=True)
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
+        io.read_jpeg(tmp_path / "a.jpg")
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
+        io.imread(tmp_path / "a.jpg")
+    assert io.image_size(tmp_path / "a.jpg") == (6, 6)
+    with pytest.raises(ValueError, match="not a PNG file .a JPEG"):
         io.read_png(tmp_path / "a.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        io.image_size(tmp_path / "a.jpg")
     Image.fromarray(_pixels((6, 6, 3))).quantize(16).save(tmp_path / "p4.png")
     with pytest.raises(NotImplementedError, match="bit depth 4"):
         io.read_png(tmp_path / "p4.png")

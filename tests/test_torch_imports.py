@@ -1,5 +1,7 @@
 """The port stands alone: ingp_tpu_torch and chip_smoke.py import
-neither JAX nor anything of the JAX package ingp_tpu."""
+neither JAX nor anything of the JAX package ingp_tpu, nor the image and
+table libraries the JAX loaders use (PIL, cv2, imageio, pyarrow), so
+that a machine without them runs it."""
 import ast
 import pathlib
 import subprocess
@@ -8,7 +10,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "ingp_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "ingp_tpu")
+BANNED = ("jax", "jaxlib", "ingp_tpu", "PIL", "cv2", "imageio", "pyarrow")
 
 
 def _banned(name: str) -> bool:
@@ -34,14 +36,15 @@ def test_no_jax_imports_in_source():
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['ingp_tpu'] = None\n"
+        f"for name in {BANNED!r}:\n"
+        "    sys.modules[name] = None\n"
         "import ingp_tpu_torch\n"
         "for m in pkgutil.walk_packages(ingp_tpu_torch.__path__,\n"
         "                               'ingp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import runpy\n"
-        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "assert not [k for k, v in sys.modules.items()\n"
+        f"            if v and k.split('.')[0] in {BANNED!r}]\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

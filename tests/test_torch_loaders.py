@@ -286,8 +286,11 @@ def test_colmap_hdr_exposures_and_real_jpeg(tmp_path):
         for e in range(5):
             Image.fromarray(rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
                             ).save(real / "input_images" / f"{v:03d}_{e}.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        dataset_dict["colmap"](root_dir=str(real), split="train")
+    # the real scenes' JPEGs (PIL's 4:2:0) decode equal to JAX's imageio
+    for split, n in (("train", 6), ("test", 4)):
+        _, got = _same("colmap", real, split)
+        assert got.rays.shape == (n, 48, 4)
+        assert got.unit_exposure_rgb == 0.5
 
 
 def test_ray_directions_and_pose_helpers_match_jax():
