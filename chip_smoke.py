@@ -60,10 +60,27 @@ Phases, each line flushed and stamped with elapsed seconds:
    image 0's appearance code and the skybox, timed, its K3 launches
    checked; and a small step with the same features plus the HDR
    tonemapper and its unit-exposure anchor, gate open, card against CPU
-   as in phase 8;
-8. train reference: one small training step on the card and on the CPU
+   as in phase 9;
+8. fused: the training step of phase 6 on the fused encoder (one table
+   of 715,199 rows x 512 lanes: 8 density and 8 rgb features a lattice
+   point, an f32 master read through a bf16 copy), with the sorted head
+   class (stream_head_frac 0.5, stream_seg_head 20: 384 head tiles of
+   768) and the cap auto-calibration: 64 steps, the last 30 timed (step
+   ms, training rays/s and peak memory beside phase 6's), the
+   calibration's reads and adopted caps (at least three reads); the
+   first step's K1 (F = 16, the jacobian window [0, 8), by tile class),
+   K2 (F = 16, with and without the window), K3 and backward launches
+   held against their plain versions on the CPU at phase 6's
+   tolerances, K1 and K2 launches a step by variant; one step each with
+   stream_sort off, with stream_dedup off on the fused model and on
+   phase 6's brick model; two pose-refinement steps on a fused model,
+   the first's launches of K2's position-cotangent variant at F = 16
+   held against their plain version; a slim checkpoint whose load into
+   a fresh system restores the adopted caps and the table; one 256x256
+   test view with the adopted caps;
+9. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
-9. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
+10. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
    forms of the TPU layout probes under benchmarking/; what each
    module's main() runs on the card, `probes.common.measure`) over
    every variant of the four probe kernels at the probes' full shapes,
@@ -83,7 +100,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    4-byte-offset cases of the card tests, bitwise. Every probe kernel
    must have been launched by the timed runs (the checks' launches are
    left out of the counts); none runs on the training path;
-10. cli: `ingp_tpu_torch.train.main` on configs/synthetic_smoke.txt at
+11. cli: `ingp_tpu_torch.train.main` on configs/synthetic_smoke.txt at
    its own 500 steps of 2048 rays (the hash encoder, f32 tables, the
    sparsity prior), in a temporary working directory, with the launch
    counts set to 0 before it: the step time, the losses of the first and
@@ -93,7 +110,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    --val_only` must give the same PSNR and SSIM to 1e-6; then the hash
    encode, its jacobian and its table gradient on the card against the
    CPU, within 1e-5 of the largest value;
-11. quality: the port's quality gate (`ingp_tpu_torch.quality_synthetic`
+12. quality: the port's quality gate (`ingp_tpu_torch.quality_synthetic`
    at its defaults: 600 steps of 8192 rays over 100 views at 256 px,
    a stream of two chunks, the sparsity prior), with the launch counts
    set to 0 before it, and its RESULT line. The first step's K2 forward
@@ -102,7 +119,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    against their plain versions on the CPU, with times and bounds, as in
    phase 6; then a miss of the bar (novel PSNR >= 26.0, SSIM >= 0.865)
    fails the run;
-12. data: configs/lego.txt trained from disk through
+13. data: configs/lego.txt trained from disk through
    `ingp_tpu_torch.train.main` in a temporary working directory, on an
    NSVF Synthetic-NeRF fixture of the sphere scene that the port's own
    writer puts under .../Synthetic_NeRF/Lego (100 train and 4 test
@@ -123,15 +140,15 @@ Phases, each line flushed and stamped with elapsed seconds:
    codes, the transient mask, the random background) on a 64x36 TNT
    fixture for 20 steps, through `train.main` without --no_save_test, so
    that it ends with `render_for_test` of the fixture's camera path;
-13. offline, in phase 12's working directory: `render_for_test(hparams,
+14. offline, in phase 13's working directory: `render_for_test(hparams,
    system=...)` of the 4 test views and `extract_mesh` at 512x128x512
-   (sigma 10) on phase 12's brick system, timed, with the launch counts
+   (sigma 10) on phase 13's brick system, timed, with the launch counts
    set to 0 before each, the first render chunk's K1, K2 and K3 forward
    variants and the first probe chunk's K2 forward held against their
    plain versions on the CPU as in phase 6; then the three CLIs on
    lego's `last` checkpoint: `render_cli` (4 views of 800x800 with the
    ms per view and rays/s, rgb.mp4 or the skip line, and frame 0 equal
-   to phase 12's `_dump_val_images` of the same view), the panorama at
+   to phase 13's `_dump_val_images` of the same view), the panorama at
    512x1024 (its three PNGs read back, the opacity mean) and
    `extract_mesh_cli` at 512x128x512 with --sigma_threshold 10 (the
    probe's and the isosurface's ms, the vertex and face counts, the .ply
@@ -139,7 +156,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    scene box); then the TNT run's trajectory frames read back and both
    aux-head passes (semantic labels, up-normal masks) on its system,
    each pass's K3 launches counted;
-14. kitti, in a temporary working directory: a KITTI-360 fixture at the
+15. kitti, in a temporary working directory: a KITTI-360 fixture at the
    dataset's image size (1408x376, both rectified cameras, 16 frames
    with OXTS, semantic PNGs and .npy normals; the port's own writer);
    configs/kitti360_nvs_1538.txt less its depth_mono line (no loader
@@ -157,10 +174,11 @@ Phases, each line flushed and stamped with elapsed seconds:
    small step with pose refinement, card against CPU, every gradient
    leaf (ext's too) to 1e-4 of its largest value; then a highbay fixture
    through `train.main` for 10 steps;
-15. the kernels JSON line (`launches`: the training window's count for
+16. the kernels JSON line (`launches`: the training window's count for
    the six package kernels, the probes phase's for the probe kernels,
-   phase 14's stream-brick pose-refinement steps' for the K2 backward's
-   position-cotangent variant; `launches_per_train_step` for all), then
+   phase 15's stream-brick pose-refinement steps' for the K2 backward's
+   position-cotangent variant; phase 8's for the rows of its F = 16
+   launches; `launches_per_train_step` for all), then
    the result line.
 
 With --reference-spread, only the device and build phases run, then
@@ -429,28 +447,34 @@ def table_namer(cfg):
     return table
 
 
-def record_kernels(cfg, names, keep=True):
+def record_kernels(cfg, names, keep=True, table=None, k1_class=None):
     """Recorders on the wrappers of the kernels `names`, keyed by
-    variant: the table a K1/K2 call reads (by its row count) and whether
-    it has a jacobian; which outputs a K3 call makes. Calls are counted
-    by variant and shape: K1's (batch rows, slots), K2's (levels,
-    samples), K3's (rays, samples)."""
+    variant: the table a K1/K2 call reads (by its row count, or as
+    `table(t, jac)` names it) and whether it has a jacobian, with
+    k1_class also a K1 call's tile class (`k1_class(urows)`); which
+    outputs a K3 call makes. Calls are counted by variant and shape:
+    K1's (batch rows, slots), K2's (levels, samples), K3's (rays,
+    samples)."""
     from ingp_tpu_torch.kernels import brickreduce as k2
     from ingp_tpu_torch.kernels import composite as k3
     from ingp_tpu_torch.kernels import rayreduce as k1
-    table = table_namer(cfg)
+    table = table or table_namer(cfg)
+
+    def k1_table(t, jac, urows):
+        v = table(t, jac)
+        return v if k1_class is None else f"{v}, {k1_class(urows)}"
 
     def k3_fwd(a):
         v = "rgb and aux" if a["rgbs"] is not None else "weights"
         return v + (", Ts" if a["with_Ts"] else "")
 
     where = {
-        "fused_ray_reduce": (k1, lambda a: table(a["table"],
-                                                 a["with_jac"])),
+        "fused_ray_reduce": (k1, lambda a: k1_table(
+            a["table"], a["with_jac"], a["urows"])),
         "brick_reduce": (k2, lambda a: table(a["table"], a["with_jac"])),
         "composite": (k3, k3_fwd),
-        "fused_ray_reduce_bwd": (k1, lambda a: table(
-            a["grad"], a["djac"] is not None)),
+        "fused_ray_reduce_bwd": (k1, lambda a: k1_table(
+            a["grad"], a["djac"] is not None, a["urows"])),
         "brick_reduce_bwd": (k2, lambda a: table(
             a["grad"], a["djac"] is not None)),
         "composite_bwd": (k3, lambda a: "rgb and aux"),
@@ -711,7 +735,7 @@ def _k1_size(a):
             n_slots_read, n_pts)
 
 
-def k1_group_times(rec):
+def k1_group_times(rec, phase="train"):
     """K1 forward at every level-group shape the first training step
     launched (the check above takes the first one of each variant): host
     and CUDA-graph ms beside the bound, on that shape's recorded
@@ -724,7 +748,7 @@ def k1_group_times(rec):
         ms, g = cuda_ms(fn, 20), graph_ms(fn)
         bound, _ = bound_of(*_k1_size(a)[:2])
         out[(v, shape)] = {"ms": ms, "graph_ms": g, "bound_ms": bound}
-        log(f"kernel fused_ray_reduce [train, {v}] group {shape}: {ms:.4f} "
+        log(f"kernel fused_ray_reduce [{phase}, {v}] group {shape}: {ms:.4f} "
             f"ms, from a CUDA graph {g:.4f} ms, bound {bound:.4f} ms (graph "
             f"at {bound / g:.1%} of the bound)")
     return out
@@ -1429,6 +1453,303 @@ def feature_render(system, te):
         return {f"features render, {tag}":
                 check_k3(a, f"features render, {tag}", "cpu")
                 for tag, (a, _) in recs["composite"].calls.items()}
+
+
+# phase "fused": bench.py's configuration on the fused encoder (one table
+# of 8 density + 8 rgb features a lattice point, 512-lane rows), the
+# sorted head class and the cap auto-calibration on
+FUSED = dict(encoder="fused", stream_head_frac=0.5, stream_seg_head=20,
+             stream_autocal=True)
+FUSED_STEPS, FUSED_MEASURE = 64, 30
+# the kernels line rows of the F = 16 launches: row name -> (kernel, the
+# first step's variant whose numbers stand in the row)
+FUSED_ROWS = {
+    "fused_ray_reduce, F 16": ("fused_ray_reduce",
+                               "grid table, jac, head class"),
+    "brick_reduce, F 16": ("brick_reduce", "grid table, jac"),
+    "fused_ray_reduce_bwd, F 16": ("fused_ray_reduce_bwd",
+                                   "grid table, jac, head class"),
+    "brick_reduce_bwd, F 16": ("brick_reduce_bwd", "grid table, jac"),
+}
+
+
+def grid_table_name(t, jac):
+    """The fused encoder's one table: "grid table, <jac|no jac>"."""
+    return f"grid table, {'jac' if jac else 'no jac'}"
+
+
+def k1_class_of(system):
+    """urows -> the tile class ("head class", "tail class" or "one
+    class") of a K1 launch of the system's stream encoder, by the shape
+    (tiles x levels, cap) of its level groups under the system's current
+    caps; "other" for a shape of none."""
+    from ingp_tpu_torch.ops import streambrick as sb
+
+    def name(urows):
+        cfg = system.model_cfg
+        bcfg, TS = cfg.fused_brick_cfg, cfg.stream_tile
+        classes = sb._tile_classes(
+            bcfg, TS, cfg.encode_chunk // TS, cfg.stream_slack,
+            cfg.stream_seg, cfg.stream_seg_head, cfg.stream_head_frac,
+            cfg.stream_direct_frac, cfg.stream_caps)
+        grouped = sb._grouped(bcfg, TS, classes)
+        names = ["one class"] if len(classes) == 1 else ["head class",
+                                                         "tail class"]
+        for (caps, Lc, Tc), nm in zip(classes, names):
+            groups = sb.group_levels(caps[:Lc]) if grouped else \
+                [(lv, lv + 1, caps[lv]) for lv in range(Lc)]
+            if any(tuple(urows.shape) == (Tc * (hi - lo), Ug)
+                   for lo, hi, Ug in groups):
+                return nm
+        return "other"
+    return name
+
+
+def phase_fused(train_system, train_stats):
+    """bench.py's training loop on the fused encoder (FUSED) at full
+    width: FUSED_STEPS steps, the last FUSED_MEASURE timed on staged
+    batches with the launch counts set to 0 before them (step ms,
+    training rays/s and peak memory beside phase "train"'s), the
+    auto-calibration's reads (every 16 steps) and adopted caps; the first
+    step's launches of every kernel variant (K1 at F = 16 by tile class)
+    held against their plain versions on the CPU at phase "train"'s
+    tolerances, and its K1 and K2 launches counted by variant and shape
+    over the untimed steps. Then one step each with stream_sort off, with
+    stream_dedup off (the fused model, and phase "train"'s brick model),
+    two pose-refinement steps on a fused model whose first launches of
+    K2's position-cotangent variant at F = 16 are checked, a slim
+    checkpoint whose load restores the adopted caps, and one 256x256 test
+    view with them. Returns ({kernel: {variant: numbers}}, {row: launches
+    in the timed window (the variant row: in the pose-refinement step)})."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.data.synthetic import SyntheticDataset
+    from ingp_tpu_torch.kernels import brickreduce as k2
+    from ingp_tpu_torch.kernels import build
+    from ingp_tpu_torch.training.trainer import NeRFSystem, tree_leaves
+    from ingp_tpu_torch.utils.ckpt import save_ckpt, slim_state
+    t_phase = t = time.time()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    tr = SyntheticDataset(split="train", img_size=IMG_SIZE, n_train=N_VIEWS)
+    te = SyntheticDataset(split="test", img_size=IMG_SIZE, n_test=1)
+    h = bench_hparams(**FUSED)
+    system = NeRFSystem(h, tr, te, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cfg = system.model_cfg
+    grid = system.params["model"]["grid_table"]
+    log(f"fused: {FUSED}; grid_table {tuple(grid.shape)} f32 "
+        f"({grid.numel() * 4 / 1e9:.2f} GB master, read through a bf16 "
+        f"copy), {cfg.fused_brick_cfg.n_features} features a point; "
+        f"set-up {time.time() - t:.2f} s")
+    k1_class = k1_class_of(system)
+    recs = record_kernels(cfg, KERNELS, table=grid_table_name,
+                          k1_class=k1_class)
+    reads = []
+    grow = system._maybe_grow_stream_caps
+
+    def read_caps(runs):
+        if system.global_step % system.AUTOCAL_EVERY == 0:
+            reads.append((system.global_step, runs.cpu().tolist()))
+        grow(runs)
+    system._maybe_grow_stream_caps = read_caps
+    rng = np.random.default_rng(2)
+    losses, trail = [], []
+    n_untimed = FUSED_STEPS - FUSED_MEASURE
+    t = time.time()
+    for i in range(n_untimed):
+        aux = system.training_step(tr.sample_batch(rng, BATCH))
+        losses.append(aux["loss"])
+        trail.append(system.model_cfg.stream_caps)
+        if i == 0:
+            for name, r in recs.items():
+                r.restore()
+            log(f"fused: first step {time.time() - t:.2f} s; kernel "
+                f"variants recorded "
+                f"{ {k: list(r.calls) for k, r in recs.items()} }")
+            for name, (kernel, tag) in FUSED_ROWS.items():
+                if tag not in recs[kernel].calls:
+                    raise AssertionError(f"fused: {kernel} [{tag}] was not "
+                                         f"called")
+            census = record_kernels(cfg, ("fused_ray_reduce",
+                                          "brick_reduce",
+                                          "fused_ray_reduce_bwd",
+                                          "brick_reduce_bwd"), keep=False,
+                                    table=grid_table_name, k1_class=k1_class)
+    for r in census.values():
+        r.restore()
+    torch.cuda.synchronize()
+    log(f"fused: {n_untimed} untimed steps {time.time() - t:.2f} s")
+    for name, r in census.items():
+        per = collections.Counter()
+        for (v, _), n in r.counts.items():
+            per[v] += n / (n_untimed - 1)
+        log(f"fused: {name} launches a step in steps 1-{n_untimed - 1} by "
+            f"variant {dict(per)}; by variant and shape "
+            f"{ {f'{v} {sh}': n for (v, sh), n in sorted(r.counts.items())} }")
+    del census
+    batches = [stage(tr.sample_batch(rng, BATCH), system.device)
+               for _ in range(FUSED_MEASURE)]
+    torch.cuda.synchronize()
+    clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for b in batches:
+        aux = system.training_step(b)
+        losses.append(aux["loss"])
+        trail.append(system.model_cfg.stream_caps)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = dt / FUSED_MEASURE * 1e3
+    log(f"fused: {FUSED_MEASURE} steps x {BATCH} rays in {dt:.3f} s: "
+        f"{step_ms:.2f} ms/step, {FUSED_MEASURE * BATCH / dt:.1f} training "
+        f"rays/s, peak {peak:.2f} GiB of which {held:.2f} GiB held by the "
+        f"earlier phases' systems (phase train's brick step: "
+        f"{train_stats['step_ms']:.2f} ms/step, "
+        f"{train_stats['rays_per_s']:.1f} rays/s, peak "
+        f"{train_stats['peak_gib']:.2f} GiB of which "
+        f"{train_stats['held_gib']:.2f} held before it); s_per_ray "
+        f"{float(aux['s_per_ray']):.2f}, psnr {float(aux['psnr']):.2f}")
+    log(f"fused: launches per step "
+        f"{ {k: launches[k] / FUSED_MEASURE for k in KERNELS} }")
+    check_launched({k: launches[k] for k in KERNELS}, "the fused phase")
+    losses = [float(v) for v in losses]
+    log(f"fused: loss first step {losses[0]:.6f}, last {losses[-1]:.6f}; "
+        f"mean of the first 5 {np.mean(losses[:5]):.6f}, of the last 5 "
+        f"{np.mean(losses[-5:]):.6f}")
+    changes = [(i + 1, c) for i, c in enumerate(trail)
+               if c != (trail[i - 1] if i else None)]
+    log(f"fused: auto-calibration reads (step, per-level run counts) "
+        f"{reads}; adopted caps (after step, caps) {changes}")
+    if len(reads) < 3 or system.model_cfg.stream_caps is None:
+        raise AssertionError(f"fused: {len(reads)} caps reads, caps "
+                             f"{system.model_cfg.stream_caps}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError("fused: the training loss is not finite and "
+                             "falling")
+    for path, p in tree_leaves(system.params):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"fused: non-finite parameter {path}")
+    with torch.no_grad():
+        checks = {name: {f"fused, {tag}": CHECKS[name](a, f"fused, {tag}")
+                         for tag, (a, _) in r.calls.items()}
+                  for name, r in recs.items()}
+        k1_group_times(recs["fused_ray_reduce"], "fused")
+    del recs, batches
+    torch.cuda.empty_cache()
+
+    def one_step(what, sys_, **replace):
+        """One step of sys_ with its model or render config replaced."""
+        model = {k: v for k, v in replace.items()
+                 if hasattr(sys_.model_cfg, k)}
+        render = {k: v for k, v in replace.items() if k not in model}
+        old = sys_.model_cfg, sys_.render_cfg
+        sys_.model_cfg = dataclasses.replace(old[0], **model)
+        sys_.render_cfg = dataclasses.replace(old[1], **render)
+        clear_counts()
+        try:
+            t = time.time()
+            loss = float(sys_.training_step(tr.sample_batch(rng, BATCH))
+                         ["loss"])
+            torch.cuda.synchronize()
+        finally:
+            sys_.model_cfg, sys_.render_cfg = old
+        n = {k: v for k, v in launch_counts().items() if v}
+        log(f"fused {what}: one step {(time.time() - t) * 1e3:.1f} ms, loss "
+            f"{loss:.6f}, launches {n}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"fused {what}: non-finite loss")
+        return n
+
+    n = one_step("stream_sort off", system, stream_sort=False)
+    check_launched({k: n.get(k, 0) for k in KERNELS}, "the unsorted step")
+    for what, sys_ in (("stream_dedup off", system),
+                       ("brick, stream_dedup off", train_system)):
+        n = one_step(what, sys_, stream_dedup=False)
+        if n.get("fused_ray_reduce") or not n.get("brick_reduce_bwd"):
+            raise AssertionError(f"fused {what}: launches {n}")
+
+    # pose refinement on a fused model: the per-sample levels' position
+    # cotangent (row 4b) at F = 16
+    ext = NeRFSystem(bench_hparams(**FUSED, optimize_ext=True), tr, te,
+                     device=DEVICE, seed=0)
+    rec = Recorder(k2, "brick_reduce_bwd_pos",
+                   lambda a: grid_table_name(a["table"],
+                                             a["djac"] is not None))
+    try:
+        ext.training_step(tr.sample_batch(rng, BATCH))
+    finally:
+        rec.restore()
+    clear_counts()
+    ext.training_step(tr.sample_batch(rng, BATCH))
+    torch.cuda.synchronize()
+    pos_launches = build.LAUNCHES[POS_KERNEL[1]]
+    log(f"fused ext: second step's launches "
+        f"{ {k: v for k, v in launch_counts().items() if v} }, "
+        f"{POS_KERNEL[0]} {pos_launches}; |ext| "
+        f"{ext_norms(ext)}")
+    if not pos_launches or not all(v > 0 for v in ext_norms(ext).values()):
+        raise AssertionError("fused ext: no position cotangent")
+    del ext
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        checks[POS_KERNEL[0]] = {
+            f"fused ext, {tag}": check_k2_bwd_pos(a, f"fused ext, {tag}")
+            for tag, (a, _) in rec.calls.items()}
+    del rec
+
+    # the adopted caps through a slim checkpoint into a fresh system
+    caps = system.model_cfg.stream_caps
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "last_slim")
+        t = time.time()
+        save_ckpt(path, slim_state(system.state()))
+        fresh = NeRFSystem(h, tr, te, device=DEVICE, seed=1)
+        before = fresh.model_cfg.stream_caps
+        fresh.load(path)
+        same = torch.equal(fresh.params["model"]["grid_table"],
+                           system.params["model"]["grid_table"])
+        log(f"fused checkpoint: slim checkpoint {os.path.getsize(path) / 1e9:.2f}"
+            f" GB written and loaded in {time.time() - t:.2f} s; caps before "
+            f"the load {before}, after {fresh.model_cfg.stream_caps}, the "
+            f"system's {caps}; grid table equal {same}")
+        if fresh.model_cfg.stream_caps != caps or before is not None \
+                or not same:
+            raise AssertionError("fused checkpoint: the caps or the table "
+                                 "were not restored")
+        del fresh
+    torch.cuda.empty_cache()
+
+    clear_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    out = system.render_image(te.poses[0])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    n_rays = te.directions.shape[0]
+    rl = {k: v for k, v in launch_counts().items() if k in FWD}
+    log(f"fused render: {n_rays} rays with caps {caps}, total_samples "
+        f"{out['total_samples']}, {wall * 1e3:.1f} ms wall, "
+        f"{n_rays / wall:.1f} rays/s; launches {rl}; opacity mean "
+        f"{float(out['opacity'].mean()):.4f}")
+    check_launched(rl, "the fused render")
+    for k, v in out.items():
+        if k != "total_samples" and (v.shape[0] != n_rays or not bool(
+                torch.isfinite(v.float()).all())):
+            raise AssertionError(f"fused render: {k} {tuple(v.shape)}")
+    del system
+    torch.cuda.empty_cache()
+    log(f"fused: phase {time.time() - t_phase:.1f} s")
+    rows = {name: launches[kernel] for name, (kernel, _) in
+            FUSED_ROWS.items()}
+    rows[f"{POS_KERNEL[0]}, F 16"] = pos_launches
+    return checks, rows
 
 
 def check_train_kernels(recs):
@@ -3583,8 +3904,9 @@ def kernel_rows(render_errs, train_checks, other_checks, launches, probes,
 def pos_kernel_row(checks, launches, per_step):
     """The kernels line row of the K2 backward's position-cotangent
     variant: its launches in phase "kitti"'s stream-brick pose-refinement
-    steps, its largest error over the variants checked, and the numbers
-    of its density-table variant."""
+    steps (or phase "fused"'s), its largest error over the variants
+    checked, and the numbers of its density-table variant (else its
+    first)."""
     p = checks.get("kitti ext, density table, jac",
                    next(iter(checks.values())))
     name, _, source, replaces = POS_KERNEL
@@ -3595,6 +3917,33 @@ def pos_kernel_row(checks, launches, per_step):
             "ms": p["ms"], "graph_ms": p["graph_ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"], "library_ms": None}
+
+
+def fused_kernel_rows(checks, launches):
+    """The kernels line rows of the F = 16 launches (phase "fused"): each
+    K1 / K2 kernel's launches in the phase's timed steps, its largest
+    error over the variants of the phase's first step and the numbers of
+    its FUSED_ROWS variant; K2's position-cotangent variant with its
+    launches in the phase's second pose-refinement step."""
+    rows = []
+    for name, (kernel, tag) in FUSED_ROWS.items():
+        _, source, replaces = KERNELS[kernel]
+        c = checks[kernel]
+        p = c[f"fused, {tag}"]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "launches_per_train_step":
+                         launches[name] / FUSED_MEASURE,
+                     "max_abs_err": max(v["max_abs_err"]
+                                        for v in c.values()),
+                     "ms": p["ms"], "graph_ms": p["graph_ms"],
+                     "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+                     "bound_by": p["bound_by"], "library_ms": None})
+    pos = f"{POS_KERNEL[0]}, F 16"
+    row = pos_kernel_row(checks[POS_KERNEL[0]], launches[pos],
+                         launches[pos])
+    rows.append({**row, "name": pos})
+    return rows
 
 
 def main(argv):
@@ -3618,6 +3967,7 @@ def main(argv):
     train_system, train_checks, launches, train_stats = phase_train(
         bench_hparams())
     feature_checks = phase_features(train_stats)
+    fused_checks, fused_launches = phase_fused(train_system, train_stats)
     phase_train_reference()
     probes, probe_launches = phase_probes()
     phase_cli()
@@ -3630,12 +3980,15 @@ def main(argv):
     log(f"done in {time.time() - T0:.1f} s")
     other_checks = {k: {**quality_checks.get(k, {}),
                         **feature_checks.get(k, {}),
+                        **(fused_checks.get(k, {}) if k.startswith(
+                            "composite") else {}),
                         **data_checks.get(k, {}),
                         **offline_checks.get(k, {}),
                         **mega_checks.get(k, {})} for k in KERNELS}
     rows = kernel_rows(render_errs, train_checks, other_checks, launches,
                        probes, probe_launches)
     rows.append(pos_kernel_row(kitti_checks[POS_KERNEL[0]], *pos_launches))
+    rows += fused_kernel_rows(fused_checks, fused_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name, "count": count}}),

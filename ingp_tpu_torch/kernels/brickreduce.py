@@ -34,7 +34,7 @@ import torch
 
 from . import build
 
-SUPPORTED_F = (2, 4, 8)
+SUPPORTED_F = (2, 4, 8, 16)
 PLAIN_CHUNK = 1 << 16     # cells per step of the plain versions
 BWD_MAX_LEVELS = 256      # brickreduce.cu: a tile's cells fill one block
 

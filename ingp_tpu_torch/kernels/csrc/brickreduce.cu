@@ -125,7 +125,7 @@ __host__ __forceinline__ size_t k2_smem_bytes(int Lw, int F, int Fj,
 }
 
 // F floats of registers into shared memory at dst (16-byte aligned for
-// F = 4, 8; 8-byte for F = 2).
+// F = 4, 8, 16; 8-byte for F = 2).
 template <int F>
 __device__ __forceinline__ void k2_put(float* dst, const float (&v)[F]) {
   if constexpr (F % 4 == 0) {
@@ -291,6 +291,8 @@ int dispatch(int F, const void* table, int64_t n_rows, const void* rows,
                                 W, with_jac, jac_lo, Fj, s);
     case 8: return launch<T, 8>(table, n_rows, rows, lf, feats, jac, Lw, N,
                                 W, with_jac, jac_lo, Fj, s);
+    case 16: return launch<T, 16>(table, n_rows, rows, lf, feats, jac, Lw,
+                                  N, W, with_jac, jac_lo, Fj, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -332,8 +334,8 @@ __device__ __forceinline__ void k2b_stage(float* dst,
   }
 }
 
-// F floats of shared memory at p (16-byte aligned for F = 4, 8; 8-byte
-// for F = 2) into registers.
+// F floats of shared memory at p (16-byte aligned for F = 4, 8, 16;
+// 8-byte for F = 2) into registers.
 template <int F>
 __device__ __forceinline__ void k2b_get(const float* p, float (&v)[F]) {
   if constexpr (F % 4 == 0) {
@@ -588,6 +590,7 @@ int dispatch_bwd_pos(int F, const void* table, int64_t n_rows,
     case 2: return launch_bwd_pos<T, 2>(POS_ARGS);
     case 4: return launch_bwd_pos<T, 4>(POS_ARGS);
     case 8: return launch_bwd_pos<T, 8>(POS_ARGS);
+    case 16: return launch_bwd_pos<T, 16>(POS_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef POS_ARGS
@@ -644,6 +647,7 @@ extern "C" int ingp_brick_reduce_bwd(void* grad, int64_t n_rows,
     case 2: return dispatch_bwd<2>(ARGS);
     case 4: return dispatch_bwd<4>(ARGS);
     case 8: return dispatch_bwd<8>(ARGS);
+    case 16: return dispatch_bwd<16>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS

@@ -129,6 +129,8 @@ int dispatch(int F, const void* table, int64_t n_rows, const void* urows,
                          n_cells, K, U, W, with_jac, jac_lo, Fj, s); break;
     case 8: launch<T, 8>(table, n_rows, urows, uid, lf, feats, jac,
                          n_cells, K, U, W, with_jac, jac_lo, Fj, s); break;
+    case 16: launch<T, 16>(table, n_rows, urows, uid, lf, feats, jac,
+                           n_cells, K, U, W, with_jac, jac_lo, Fj, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -160,13 +162,15 @@ __device__ __forceinline__ void bwd_put(float* p, const float (&v)[F]) {
 template <int F>
 __device__ __forceinline__ void bwd_put(__nv_bfloat16* p,
                                         const float (&v)[F]) {
-  __nv_bfloat162 h[F / 2];
+  __align__(16) __nv_bfloat162 h[F / 2];
 #pragma unroll
   for (int i = 0; i < F / 2; ++i)
     h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  if constexpr (F == 8)
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
-  else if constexpr (F == 4)
+  if constexpr (F % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < F / 8; ++i)
+      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(h)[i];
+  } else if constexpr (F == 4)
     *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
   else
     *reinterpret_cast<__nv_bfloat162*>(p) = h[0];
@@ -191,10 +195,12 @@ __device__ __forceinline__ void bwd_get(const float* p, float (&v)[F]) {
 template <int F>
 __device__ __forceinline__ void bwd_get(const __nv_bfloat16* p,
                                         float (&v)[F]) {
-  __nv_bfloat162 h[F / 2];
-  if constexpr (F == 8)
-    *reinterpret_cast<uint4*>(h) = *reinterpret_cast<const uint4*>(p);
-  else if constexpr (F == 4)
+  __align__(16) __nv_bfloat162 h[F / 2];
+  if constexpr (F % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < F / 8; ++i)
+      reinterpret_cast<uint4*>(h)[i] = reinterpret_cast<const uint4*>(p)[i];
+  } else if constexpr (F == 4)
     *reinterpret_cast<uint2*>(h) = *reinterpret_cast<const uint2*>(p);
   else
     h[0] = *reinterpret_cast<const __nv_bfloat162*>(p);
@@ -206,10 +212,15 @@ __device__ __forceinline__ void bwd_get(const __nv_bfloat16* p,
   }
 }
 
-// 3 blocks per SM: ptxas then keeps the kernel within 80 registers
-// (measured faster on the card than 2 blocks at 114 registers)
+// 3 blocks per SM up to F = 8: ptxas then keeps the kernel within 80
+// registers (measured faster on the card than 2 blocks at 114
+// registers). At F = 16 the f32 staging alone takes 132 KB of shared
+// memory, so one block fits an SM, and its 4 x 16-float carries would
+// spill at 80 registers: the bound asks for one block.
+constexpr int bwd_min_blocks(int F) { return F >= 16 ? 1 : 3; }
+
 template <int F, bool JAC, bool BF16>
-__global__ void __launch_bounds__(kBwdThreads, 3)
+__global__ void __launch_bounds__(kBwdThreads, bwd_min_blocks(F))
     ray_reduce_bwd_kernel(float* __restrict__ grad, int64_t n_rows,
                           const int* __restrict__ urows,
                           const int* __restrict__ uid,
@@ -446,6 +457,9 @@ extern "C" int ingp_ray_reduce_bwd(void* grad, int64_t n_rows,
                                    lf, df, dj, B, K, U, W, jac_lo, Fj, s);
     case 8: return dispatch_bwd<8>(with_jac, bf16, grad, n_rows, urows, uid,
                                    lf, df, dj, B, K, U, W, jac_lo, Fj, s);
+    case 16: return dispatch_bwd<16>(with_jac, bf16, grad, n_rows, urows,
+                                     uid, lf, df, dj, B, K, U, W, jac_lo, Fj,
+                                     s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,7 +15,7 @@ __device__ __forceinline__ float ingp_to_f32(__nv_bfloat16 v) {
 }
 
 // F features of one lattice point; 16-byte vector loads where a point's
-// features fill whole 16-byte words (bf16 F=8, f32 F=4/8), which the
+// features fill whole 16-byte words (bf16 F=8/16, f32 F=4/8/16), which the
 // wrappers keep aligned by requiring aligned, contiguous rows.
 template <typename T, int F>
 __device__ __forceinline__ void ingp_load_point(const T* __restrict__ p,

@@ -7,6 +7,9 @@ Parameters are a plain tree of tensors with the JAX package's structure:
     "density_table": brick table (bricks, row_width) or hash table
                      (total_rows, F), f32,
     "rgb_table":     the same for the colour features,
+    (encoder "fused": one "grid_table" (bricks, row_width) in their
+     place, each lattice point's density_F then rgb_F features in one
+     row, `fused_brick_cfg`)
     "xyz_net":  MLP L*F -> 128 -> 1 (softplus hidden),
     "rgb_net":  MLP (16 + L*F [+ embed_a_len]) -> 128 -> 3,
     "norm_net": MLP L*F -> 32 -> 3,
@@ -59,10 +62,13 @@ def per_level_scale_for(scene_scale: float, n_levels: int = 16,
 @dataclasses.dataclass(frozen=True)
 class NGPConfig:
     """Model hyperparameters; the fields and defaults of ingp_tpu's
-    NGPConfig except encode_remat (a JAX rematerialisation policy) and
-    stream_seg_head / stream_head_frac / stream_caps (tile caps of the
-    training step's sorted stream; the test render's stream is
-    unsorted). The port runs encoder="brick" or "hash"."""
+    NGPConfig except encode_remat (a JAX rematerialisation policy).
+    encoder: "hash", "brick" or "fused" (the brick layout with the
+    density and rgb features of a lattice point in one table row).
+    stream_seg_head / stream_head_frac: the tight tile class at the head
+    of each chunk of a stream sorted by per-ray kept count;
+    stream_caps: per-level caps measured by the trainer's
+    auto-calibration, replacing the formula's (None: the formula)."""
     scale: float = 0.5
     rgb_act: str = "sigmoid"
     use_skybox: bool = False
@@ -88,6 +94,9 @@ class NGPConfig:
     stream_slack: float = 1.5
     stream_direct_frac: float = 0.7
     stream_seg: int = 4
+    stream_seg_head: int = 20
+    stream_head_frac: float = 0.0
+    stream_caps: tuple | None = None
 
     @property
     def cascades(self) -> int:
@@ -126,6 +135,15 @@ class NGPConfig:
         return self._brick_cfg(self.rgb_L, self.rgb_F, self.rgb_log2T)
 
     @property
+    def fused_brick_cfg(self) -> BrickGridConfig:
+        """One table of [density_F | rgb_F] features per lattice point,
+        on the rgb table's levels and brick count."""
+        assert self.density_L == self.rgb_L, \
+            "fused encoder requires density_L == rgb_L"
+        return self._brick_cfg(self.rgb_L, self.density_F + self.rgb_F,
+                               self.rgb_log2T)
+
+    @property
     def rgb_in_dim(self) -> int:
         d = self.sh_degree ** 2 + self.rgb_L * self.rgb_F
         return d + (self.embed_a_len if self.embed_a else 0)
@@ -136,10 +154,8 @@ class NGPConfig:
 
 
 def _check_supported(cfg: NGPConfig):
-    if cfg.encoder not in ("brick", "hash"):
-        raise NotImplementedError(
-            f"encoder {cfg.encoder!r} is not ported yet (brick and hash "
-            f"only)")
+    if cfg.encoder not in ("brick", "hash", "fused"):
+        raise ValueError(f"unknown encoder {cfg.encoder!r}")
 
 
 def ngp_init(cfg: NGPConfig, key, device=None):
@@ -150,16 +166,19 @@ def ngp_init(cfg: NGPConfig, key, device=None):
     LFd = cfg.density_L * cfg.density_F
     LFr = cfg.rgb_L * cfg.rgb_F
     keys = prng.split(key, 10)
-    if cfg.encoder == "hash":
-        init, dcfg, rcfg = (hashgrid_init, cfg.density_grid_cfg,
-                            cfg.rgb_grid_cfg)
+    if cfg.encoder == "fused":
+        tables = {"grid_table": brickgrid_init(cfg.fused_brick_cfg, keys[0],
+                                               device)}
     else:
-        init, dcfg, rcfg = (brickgrid_init, cfg.density_brick_cfg,
-                            cfg.rgb_brick_cfg)
+        init, dcfg, rcfg = (
+            (hashgrid_init, cfg.density_grid_cfg, cfg.rgb_grid_cfg)
+            if cfg.encoder == "hash" else
+            (brickgrid_init, cfg.density_brick_cfg, cfg.rgb_brick_cfg))
+        tables = {"density_table": init(dcfg, keys[0], device),
+                  "rgb_table": init(rcfg, keys[2], device)}
     params = {
-        "density_table": init(dcfg, keys[0], device),
+        **tables,
         "xyz_net": mlp_init((LFd, 128, 1), keys[1], device),
-        "rgb_table": init(rcfg, keys[2], device),
         "rgb_net": mlp_init((cfg.rgb_in_dim, 128, 3), keys[3], device),
         "norm_net": mlp_init((LFr, 32, 3), keys[4], device),
         "sem_net": mlp_init((LFr, 32, cfg.classes), keys[5], device),
@@ -236,27 +255,62 @@ def _storage_dt(cfg: NGPConfig):
 
 
 def _use_stream(cfg: NGPConfig, stream) -> bool:
-    return bool(stream) and cfg.stream_dedup and cfg.encoder == "brick"
+    """stream: False, True (a ray-contiguous compact stream) or "sorted"
+    (also sorted by per-ray kept count, which arms the head class)."""
+    return (bool(stream) and cfg.stream_dedup
+            and cfg.encoder in ("brick", "fused"))
 
 
-def _stream_kwargs(cfg: NGPConfig):
+def _stream_kwargs(cfg: NGPConfig, bcfg: BrickGridConfig, stream):
+    """The stream encoder's settings: the head class only on a sorted
+    stream (on an unsorted one its tight caps would overflow), the
+    measured caps only on an encoder with their level count (they come
+    from the rgb table's levels)."""
+    sorted_ = stream == "sorted"
+    caps = cfg.stream_caps
+    if caps is not None and len(caps) != bcfg.n_levels:
+        caps = None
     return dict(tile=cfg.stream_tile, chunk=cfg.encode_chunk,
                 storage_dtype=_storage_dt(cfg), slack=cfg.stream_slack,
-                seg_est=cfg.stream_seg, direct_frac=cfg.stream_direct_frac)
+                seg_est=cfg.stream_seg, direct_frac=cfg.stream_direct_frac,
+                seg_head=cfg.stream_seg_head if sorted_ else 0,
+                head_frac=cfg.stream_head_frac if sorted_ else 0.0,
+                caps_override=caps)
 
 
-def _encode(cfg: NGPConfig, which, table, u_cm, stream):
-    """Hash, stream-dedup or per-sample brick encode of (3, N) coords on
-    the `which` ("density" or "rgb") table."""
+def _split_fused(cfg: NGPConfig, feats):
+    """(N, L*(Fd+Fr)) level-major fused features -> (density (N, L*Fd),
+    rgb (N, L*Fr))."""
+    N = feats.shape[0]
+    L, Fd, Fr = cfg.rgb_L, cfg.density_F, cfg.rgb_F
+    f = feats.reshape(N, L, Fd + Fr)
+    return f[:, :, :Fd].reshape(N, L * Fd), f[:, :, Fd:].reshape(N, L * Fr)
+
+
+def _brick_encode(cfg: NGPConfig, bcfg, table, u_cm, stream):
+    """Stream-dedup or per-sample brick encode of (3, N) coords."""
+    if _use_stream(cfg, stream):
+        return streambrick_encode(bcfg, table, u_cm,
+                                  **_stream_kwargs(cfg, bcfg, stream))
+    return brickgrid_encode(bcfg, table, u_cm, chunk=cfg.encode_chunk,
+                            storage_dtype=_storage_dt(cfg), x_cm=True)
+
+
+def _encode(cfg: NGPConfig, which, params, u_cm, stream):
+    """Hash, stream-dedup or per-sample brick features of (3, N) coords
+    for `which` ("density" or "rgb"); the fused encoder reads its one
+    table and keeps that half of each level's features."""
+    if cfg.encoder == "fused":
+        feats = _brick_encode(cfg, cfg.fused_brick_cfg, params["grid_table"],
+                              u_cm, stream)
+        return _split_fused(cfg, feats)[int(which == "rgb")]
+    table = params[f"{which}_table"]
     if cfg.encoder == "hash":
         return hashgrid_encode(getattr(cfg, f"{which}_grid_cfg"), table,
                                u_cm, storage_dtype=_storage_dt(cfg),
                                x_cm=True)
-    bcfg = getattr(cfg, f"{which}_brick_cfg")
-    if _use_stream(cfg, stream):
-        return streambrick_encode(bcfg, table, u_cm, **_stream_kwargs(cfg))
-    return brickgrid_encode(bcfg, table, u_cm, chunk=cfg.encode_chunk,
-                            storage_dtype=_storage_dt(cfg), x_cm=True)
+    return _brick_encode(cfg, getattr(cfg, f"{which}_brick_cfg"), table,
+                         u_cm, stream)
 
 
 def _density_mlp(cfg: NGPConfig, params, feats):
@@ -289,7 +343,7 @@ def ngp_sigma_cm(cfg: NGPConfig, params, x_cm, stream=False):
     """Density only: x_cm (3, N) world coords -> (N,) sigma."""
     _check_supported(cfg)
     u = _normalize_coords(cfg, x_cm)
-    h = _encode(cfg, "density", params["density_table"], u, stream)
+    h = _encode(cfg, "density", params, u, stream)
     raw, _ = _density_mlp(cfg, params, h)
     return nnf.softplus(raw)
 
@@ -302,26 +356,37 @@ def ngp_sigma(cfg: NGPConfig, params, x):
 def ngp_grad_cm(cfg: NGPConfig, params, x_cm, stream=False):
     """(sigmas (N,), feat_rgb (N, L*F), d sigma/dx (3, N)): the analytic
     trilerp jacobian of the density features chained with the density
-    MLP's vjp."""
+    MLP's vjp. The fused encoder gives the density features, their
+    jacobian (the window [0, density_F) of each level) and the rgb
+    features in one pass."""
     _check_supported(cfg)
     u = _normalize_coords(cfg, x_cm)
-    table = params["density_table"]
+    feat_rgb = None
     if cfg.encoder == "hash":
         feats, jac = hashgrid_encode_grad(
-            cfg.density_grid_cfg, table, u, storage_dtype=_storage_dt(cfg),
-            x_cm=True)
-    elif _use_stream(cfg, stream):
-        feats, jac = streambrick_encode_grad(cfg.density_brick_cfg, table, u,
-                                             **_stream_kwargs(cfg))
-    else:
-        feats, jac = brickgrid_encode_grad(
-            cfg.density_brick_cfg, table, u, chunk=cfg.encode_chunk,
+            cfg.density_grid_cfg, params["density_table"], u,
             storage_dtype=_storage_dt(cfg), x_cm=True)
+    else:
+        fused = cfg.encoder == "fused"
+        bcfg = cfg.fused_brick_cfg if fused else cfg.density_brick_cfg
+        table = params["grid_table" if fused else "density_table"]
+        jac_hi = cfg.density_F if fused else None
+        if _use_stream(cfg, stream):
+            feats, jac = streambrick_encode_grad(
+                bcfg, table, u, jac_lo=0, jac_hi=jac_hi,
+                **_stream_kwargs(cfg, bcfg, stream))
+        else:
+            feats, jac = brickgrid_encode_grad(
+                bcfg, table, u, chunk=cfg.encode_chunk, jac_lo=0,
+                jac_hi=jac_hi, storage_dtype=_storage_dt(cfg), x_cm=True)
+        if fused:
+            feats, feat_rgb = _split_fused(cfg, feats)
     raw, pre = _density_mlp(cfg, params, feats)
     sigmas = nnf.softplus(raw)
     dfeat = _density_mlp_vjp(cfg, params, pre, torch.sigmoid(raw))
     grads = torch.einsum("dnf,nf->dn", jac, dfeat) / (2.0 * cfg.scale)
-    feat_rgb = _encode(cfg, "rgb", params["rgb_table"], u, stream)
+    if feat_rgb is None:
+        feat_rgb = _encode(cfg, "rgb", params, u, stream)
     return sigmas, feat_rgb, grads
 
 
@@ -341,8 +406,7 @@ def ngp_grad(cfg: NGPConfig, params, x):
 def ngp_rgb_feat(cfg: NGPConfig, params, x):
     """RGB table features (N, L*F) at world coords x (N, 3)."""
     _check_supported(cfg)
-    return _encode(cfg, "rgb", params["rgb_table"],
-                   _normalize_coords(cfg, x.T), False)
+    return _encode(cfg, "rgb", params, _normalize_coords(cfg, x.T), False)
 
 
 def ngp_density(cfg: NGPConfig, params, x, return_feat=False):

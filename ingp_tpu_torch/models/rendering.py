@@ -1,10 +1,13 @@
 """Rendering (counterpart of ingp_tpu/models/rendering.py).
 
 Training (`render_rays`, :130-317): intersect -> march -> global sample
-budget -> kept-count ray sort -> compaction -> full forward (stream
-encoder; the per-ray appearance codes follow the sort and the compaction
-to the samples) -> scatter back -> composite (K3) -> Ref-NeRF composites
-and distortion -> inverse permute -> background (`_finish_render`,
+budget -> kept-count ray sort (unless `stream_sort` is off) ->
+compaction -> full forward (stream encoder, the sorted stream with its
+head class; the per-ray appearance codes follow the sort and the
+compaction to the samples) -> scatter back -> composite (K3) -> Ref-NeRF
+composites and distortion -> inverse permute -> with `run_stats`, the
+measured run counts of the stream (`stream_runs`) -> background
+(`_finish_render`,
 :81-93: a fixed or random colour, or the skybox behind its gate, in the
 caller's ray order). Differentiable w.r.t. the parameters and, through
 the sample positions and directions (the march's t values held fixed),
@@ -35,8 +38,9 @@ from ..ops.composite import (composite_rays, distortion_loss, ref_loss,
 from ..ops.march import MarchConfig, march_rays_block, march_rays_lattice
 from ..ops.pack import (compact_samples, gather_samples, ray_ids_for,
                         scatter_back, scatter_back_cm)
-from .ngp import (NGPConfig, ngp_forward_cm, ngp_forward_skybox,
-                  ngp_sigma_cm)
+from ..ops.streambrick import run_count_quantiles
+from .ngp import (NGPConfig, _normalize_coords, ngp_forward_cm,
+                  ngp_forward_skybox, ngp_sigma_cm)
 
 MAX_SAMPLES = 1024
 NEAR_DISTANCE = 0.01
@@ -46,12 +50,13 @@ NEAR_DISTANCE = 0.01
 class RenderConfig:
     """Rendering parameters: the fields of ingp_tpu's RenderConfig that
     the port reads. The port always composites through kernel K3 (no
-    pallas_composite) and, in training, always orders rays by kept count
-    (ingp_tpu's stream_sort=True, bench.py's default); random_bg and
-    stop_header_grads stay out (the trainer reads hparams.random_bg and
-    draws the background; training never stops the heads' gradients and
-    the test render always does) and run_stats (cap auto-calibration)
-    is not ported."""
+    pallas_composite); random_bg and stop_header_grads stay out (the
+    trainer reads hparams.random_bg and draws the background; training
+    never stops the heads' gradients and the test render always does).
+    stream_sort: order the training stream's rays by kept count (the
+    kept sample set stays that of the unsorted pack); run_stats: report
+    the per-level run-count quantiles of the training stream, the input
+    of the trainer's cap auto-calibration."""
     exp_step_factor: float = 0.0
     T_threshold: float = 1e-4
     max_samples: int = MAX_SAMPLES
@@ -59,6 +64,8 @@ class RenderConfig:
     march_iters: int = 1024
     samples_per_ray: int = 48
     use_skybox: bool = False
+    run_stats: bool = False
+    stream_sort: bool = True
 
     def march_cfg(self, model: NGPConfig) -> MarchConfig:
         return MarchConfig(
@@ -144,7 +151,7 @@ def _march(model_cfg, render_cfg, bitfield, rays_o, rays_d, noise,
 def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
                 bitfield, rays_o, rays_d, noise, embedding_a=None,
                 exposure=None, bg_color=None, skybox_gate=1.0,
-                block_table=None):
+                block_table=None, stats_gate=None):
     """Training render of (R, 3) rays with start jitter noise (R,) in
     [0, 1); differentiable w.r.t. params (and embedding_a).
 
@@ -154,6 +161,10 @@ def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
     bg_color: (3,) background colour, or None for black.
     skybox_gate: 0 or 1 (a float or a 0-d tensor); with use_skybox the
       background is gate * skybox + (1 - gate) * bg_color.
+    stats_gate: with run_stats, whether to measure the stream's run
+      counts this call (None: measure); results then hold "stream_runs"
+      (L,) int32 (`streambrick.run_count_quantiles` on the rgb brick
+      table's levels).
 
     Returns the per-ray results of ingp_tpu's render_rays (rgb, depth,
     opacity, normal_pred/raw, semantic, vr_samples, ws/ts/deltas/valid/
@@ -166,29 +177,34 @@ def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
     march = _march(model_cfg, render_cfg, bitfield, rays_o, rays_d, noise,
                    block_table)
     ts, deltas, valid = march["ts"], march["deltas"], march["valid"]
-    # the global budget first, in compact_samples' sample-major order, so
-    # the kept sample set is that of an unsorted pack; then rays by
-    # descending kept count (stable, as jnp.argsort), striped over the
-    # encoder's chunks so that each chunk sees the whole spectrum
-    cum = torch.cumsum(valid.T.reshape(-1).to(torch.int32), 0)
-    valid = valid & (cum.reshape(S, R).T <= K)
-    perm = torch.argsort(-valid.sum(-1), stable=True)
-    nc = max(1, -(-K // model_cfg.encode_chunk))
-    if nc > 1:
-        perm = torch.cat([perm[c::nc] for c in range(nc)])
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(R, device=perm.device)
-    valid, ts, deltas = valid[perm], ts[perm], deltas[perm]
-    o_cm, d_cm = rays_o.T[:, perm], rays_d.T[:, perm]
+    o_cm, d_cm, emb, inv = rays_o.T, rays_d.T, embedding_a, None
+    if render_cfg.stream_sort:
+        # the global budget first, in compact_samples' sample-major
+        # order, so the kept sample set is that of an unsorted pack; then
+        # rays by descending kept count (stable, as jnp.argsort), striped
+        # over the encoder's chunks so that each chunk sees the whole
+        # spectrum (the head class of every chunk holds its longest)
+        cum = torch.cumsum(valid.T.reshape(-1).to(torch.int32), 0)
+        valid = valid & (cum.reshape(S, R).T <= K)
+        perm = torch.argsort(-valid.sum(-1), stable=True)
+        nc = max(1, -(-K // model_cfg.encode_chunk))
+        if nc > 1:
+            perm = torch.cat([perm[c::nc] for c in range(nc)])
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(R, device=perm.device)
+        valid, ts, deltas = valid[perm], ts[perm], deltas[perm]
+        o_cm, d_cm = o_cm[:, perm], d_cm[:, perm]
+        emb = embedding_a[perm] if embedding_a is not None else None
     plan = compact_samples(valid, K)
     rids = ray_ids_for(plan)
     t_k = gather_samples(ts, plan)
     dir_cm = d_cm[:, rids]
     xyz_cm = o_cm[:, rids] + t_k[None] * dir_cm
-    emb_k = embedding_a[perm][rids] if embedding_a is not None else None
+    emb_k = emb[rids] if emb is not None else None
     sig_k, rgbs_cm, nraw_cm, npred_cm, sems_cm = ngp_forward_cm(
         model_cfg, params, xyz_cm, dir_cm, embedding_a=emb_k,
-        exposure=exposure, stream=True)
+        exposure=exposure,
+        stream="sorted" if render_cfg.stream_sort else True)
     sig_k = torch.where(plan.slot_valid, sig_k, 0.0)
     sigmas = scatter_back(sig_k, plan)
     nraw = scatter_back_cm(nraw_cm, plan)
@@ -208,8 +224,16 @@ def render_rays(model_cfg: NGPConfig, render_cfg: RenderConfig, params,
         deltas, valid_k, render_cfg.T_threshold)
     results["distortion"] = distortion_loss(results["ws"], deltas, ts,
                                             valid_k)
-    results = _inv_permute_results(results, inv)
+    if inv is not None:
+        results = _inv_permute_results(results, inv)
     results["total_samples"] = march["total_samples"]
+    if render_cfg.run_stats and (stats_gate is None or stats_gate):
+        # the encoder's own stream (unpadded), on the rgb brick table's
+        # levels: its runs bound the density table's too
+        results["stream_runs"] = run_count_quantiles(
+            model_cfg.rgb_brick_cfg,
+            _normalize_coords(model_cfg, xyz_cm.detach()),
+            model_cfg.stream_tile)
     return _finish_render(model_cfg, render_cfg, params, results, rays_d,
                           bg_color, skybox_gate)
 

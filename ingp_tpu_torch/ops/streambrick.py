@@ -1,22 +1,25 @@
-"""Stream-dedup brick-grid encoding over a ray-contiguous compact
-sample stream (counterpart of ingp_tpu/ops/streambrick.py, forward,
-grouped path).
+"""Stream-dedup brick-grid encoding over a ray-contiguous compact sample
+stream (counterpart of ingp_tpu/ops/streambrick.py).
 
 The compact batch packs each ray's t-ordered samples contiguously, so
 consecutive samples usually share a brick at all but the finest levels.
 The stream is cut into tiles of TS samples; per tile and level, runs of
 equal consecutive row ids are deduplicated into a unique-row table of
-static capacity (the level group's cap Ug). A run past the cap marks its
-cells as overflowed (local = -9), which gives them exact zero features
-at that level instead of aliasing another run's row.
+static capacity. A run past the cap marks its cells as overflowed
+(local = -9), which gives them exact zero features at that level
+instead of aliasing another run's row.
 
-Coarse levels are planned in groups of similar cap (`group_levels`) and
-reduced by kernel K1 (kernels/rayreduce.py), which reads each cell's
-unique row from the table by its id; fine levels, whose runs are about
-one sample long, go straight to kernel K2 (kernels/brickreduce.py),
-which reads each sample's row by its id. Neither gathers rows into a
-block first. This is the grouped path, the TPU default
-(ingp_tpu/ops/streambrick.py:172-190).
+A chunk's tiles form one or two classes (`_tile_classes`): consecutive
+tile ranges with their own per-level caps, the tight head class of a
+stream sorted by per-ray kept count and the rest, or one class of
+auto-calibrated caps (`caps_override`, from `run_count_quantiles`).
+Coarse levels are planned in groups of similar cap (`group_levels`,
+one aligned cap a group) where JAX takes its grouped path on the TPU,
+else level by level at each level's own cap (`_grouped`), and reduced
+by kernel K1 (kernels/rayreduce.py), which reads each cell's unique row
+from the table by its id; fine levels, whose runs are about one sample
+long, go straight to kernel K2 (kernels/brickreduce.py), which reads
+each sample's row by its id. Neither gathers rows into a block first.
 
 Both encoders are differentiable w.r.t. the f32 master table: every K1
 and K2 launch of one call reads one `table_read`, and their backward
@@ -121,18 +124,10 @@ def _unique_plan_uniform(rows, valid, Ug: int):
     return uid.contiguous(), urows.contiguous(), overflow
 
 
-def _plan_groups(caps_c, rows_c, T: int, TS: int):
-    """Dedup plans of every level group: [(lo, hi, Ug, uid, urows,
-    overflow)]."""
-    ones = torch.ones((T, TS), dtype=torch.bool, device=rows_c.device)
-    return [(lo, hi, Ug) + _unique_plan_uniform(rows_c[lo:hi], ones, Ug)
-            for lo, hi, Ug in group_levels(caps_c)]
-
-
 def _grouped_reduce(cfg, plans, read, loc4, frc4, T, TS, jac_lo, jac_hi,
                     with_jac):
-    """One K1 launch per level group, reading the group's unique rows
-    from the table read by id. loc4/frc4: (3, Lc, T, TS).
+    """One K1 launch per plan (a level group, or one level), reading its
+    unique rows from the table read by id. loc4/frc4: (3, Lc, T, TS).
     Returns (feats (N, Lc*F), jac (3, N, Lc*Fj) or None)."""
     F = cfg.n_features
     Fj = (F if jac_hi is None else jac_hi) - jac_lo
@@ -173,24 +168,87 @@ def _direct_reduce(cfg, read, rows_d, local, frac, Lc, jac_lo, jac_hi,
                              with_jac, jac_lo, jac_hi)
 
 
-def _tile_classes(cfg, tile, slack, seg_est, direct_frac):
-    """Formula caps of a tile and the first directly read level: the one
-    tile class of an unsorted stream (ingp_tpu's `_tile_classes` with no
-    sorted head and no cap override)."""
-    caps = stream_caps(cfg, tile, slack=slack, seg_est=seg_est)
-    return caps, split_levels(caps, tile, direct_frac)
+def run_count_quantiles(cfg: BrickGridConfig, u_cm, tile: int,
+                        q: float = 0.995):
+    """Per-level q-quantile over the TS-sample tiles of the unique-run
+    count each tile of the stream u_cm (3, N) (normalised, ray-
+    contiguous, unpadded) produces: the measured quantity the caps must
+    cover (the trainer's cap auto-calibration). Returns (L,) int32;
+    zeros when the stream is shorter than one tile."""
+    rows, _, _ = brick_coords(cfg, u_cm.float())
+    L, N = rows.shape
+    T = N // tile
+    if T == 0:
+        return torch.zeros(L, dtype=torch.int32, device=u_cm.device)
+    r3 = rows[:, :T * tile].reshape(L, T, tile)
+    prev = torch.cat([torch.full((L, T, 1), -1, dtype=r3.dtype,
+                                 device=r3.device), r3[:, :, :-1]], 2)
+    runs = (r3 != prev).sum(2)
+    k = min(T - 1, int(np.ceil(q * (T - 1))))
+    return torch.sort(runs, 1).values[:, k].to(torch.int32)
 
 
-def _encode_chunk_stream(cfg, read, caps, Lc, TS, xT, jac_lo, jac_hi,
-                         with_jac):
-    """One chunk: xT (3, Nc) ray-contiguous positions, Nc = T*TS.
-    Returns feats (Nc, L*F) and, with_jac, jac (3, Nc, L*Fj)."""
+def _tile_classes(cfg, tile, T, slack, seg_est, seg_head, head_frac,
+                  direct_frac, caps_override=None):
+    """Per-chunk tile classes [(caps, Lc, Tc)]: consecutive ranges of Tc
+    tiles of a chunk of T tiles, each with its per-level caps and its
+    first directly read level Lc.
+
+    caps_override (the auto-calibrated caps, one per level) makes one
+    class of those caps, clamped to be monotone in level (what
+    group_levels and split_levels assume) and at most the tile. Else,
+    with seg_head and head_frac set on a sorted stream, the first
+    int(T*head_frac)//8*8 tiles, which hold the longest segments, take
+    the caps of the tighter breaks budget tile/seg_head, at the level
+    split of the rest (no class when T < 16 or the head would be empty
+    or all); the rest keep the formula caps."""
+    if caps_override is not None:
+        caps, m = [], 1
+        for c in caps_override:
+            m = max(m, int(c))
+            caps.append(min(tile, m))
+        caps = tuple(caps)
+        return [(caps, split_levels(caps, tile, direct_frac), T)]
+    caps_tail = stream_caps(cfg, tile, slack=slack, seg_est=seg_est)
+    Lc_tail = split_levels(caps_tail, tile, direct_frac)
+    if not seg_head or head_frac <= 0.0 or T < 16:
+        return [(caps_tail, Lc_tail, T)]
+    Th = int(T * head_frac) // 8 * 8
+    if Th <= 0 or Th >= T:
+        return [(caps_tail, Lc_tail, T)]
+    caps_head = stream_caps(cfg, tile, slack=slack, seg_est=seg_head)
+    Lc_head = min(split_levels(caps_head, tile, direct_frac), Lc_tail)
+    return [(caps_head, Lc_head, Th), (caps_tail, Lc_tail, T - Th)]
+
+
+def _grouped(cfg, TS, classes) -> bool:
+    """Whether the chunk's dedup levels are planned in level groups of one
+    aligned cap (the grouped path) or each level at its own cap U_l.
+
+    The JAX package takes its grouped path on the TPU only where its
+    kernel covers every class (ingp_tpu/ops/streambrick.py:172-189,
+    :451-530): rows of 32*F lanes, TS a multiple of 128 and every class's
+    tile count a multiple of 8; elsewhere it plans each level at its
+    exact cap U_l (`_dedup_feats`), so a run overflows at U_l instead of
+    at the group's aligned cap. The port plans as JAX would."""
+    return (cfg.row_width == 32 * cfg.n_features and TS % 128 == 0
+            and all(Tc % 8 == 0 for _, Lc, Tc in classes if Lc > 0))
+
+
+def _encode_class(cfg, read, caps, Lc, grouped, TS, rows, local, frac,
+                  jac_lo, jac_hi, with_jac):
+    """One tile class: rows (L, Nc), local/frac (3, L, Nc), Nc = Tc*TS.
+    Returns feats (Nc, L*F) and jac (3, Nc, L*Fj) or None."""
     L = cfg.n_levels
-    T = xT.shape[1] // TS
-    rows, local, frac = brick_coords(cfg, xT)
+    T = rows.shape[1] // TS
     fs, js = [], []
     if Lc > 0:
-        plans = _plan_groups(caps[:Lc], rows[:Lc].reshape(Lc, T, TS), T, TS)
+        groups = group_levels(caps[:Lc]) if grouped else \
+            [(lvl, lvl + 1, int(caps[lvl])) for lvl in range(Lc)]
+        rows_c = rows[:Lc].reshape(Lc, T, TS)
+        ones = torch.ones((T, TS), dtype=torch.bool, device=rows.device)
+        plans = [(lo, hi, Ug) + _unique_plan_uniform(rows_c[lo:hi], ones, Ug)
+                 for lo, hi, Ug in groups]
         f, j = _grouped_reduce(cfg, plans, read,
                                local[:, :Lc].reshape(3, Lc, T, TS),
                                frac[:, :Lc].reshape(3, Lc, T, TS), T, TS,
@@ -206,8 +264,30 @@ def _encode_chunk_stream(cfg, read, caps, Lc, TS, xT, jac_lo, jac_hi,
     return (feats, torch.cat(js, 2)) if with_jac else (feats, None)
 
 
+def _encode_chunk_stream(cfg, read, classes, TS, xT, jac_lo, jac_hi,
+                         with_jac):
+    """One chunk: xT (3, Nc) ray-contiguous positions, Nc = T*TS, cut
+    into the consecutive tile ranges of `classes` [(caps, Lc, Tc)].
+    Returns feats (Nc, L*F) and, with_jac, jac (3, Nc, L*Fj)."""
+    rows, local, frac = brick_coords(cfg, xT)
+    grouped = _grouped(cfg, TS, classes)
+    fs, js = [], []
+    n0 = 0
+    for caps, Lc, Tc in classes:
+        sl = slice(n0, n0 + Tc * TS)
+        n0 += Tc * TS
+        f, j = _encode_class(cfg, read, caps, Lc, grouped, TS, rows[:, sl],
+                             local[:, :, sl], frac[:, :, sl], jac_lo, jac_hi,
+                             with_jac)
+        fs.append(f)
+        js.append(j)
+    feats = torch.cat(fs, 0)
+    return (feats, torch.cat(js, 1)) if with_jac else (feats, None)
+
+
 def _stream(cfg, table, x_cm, tile, chunk, storage_dtype, slack, seg_est,
-            direct_frac, jac_lo, jac_hi, with_jac):
+            direct_frac, seg_head, head_frac, caps_override, jac_lo, jac_hi,
+            with_jac):
     if cfg.brick_size != 2:
         raise NotImplementedError("the stream encoder covers brick_size 2")
     read = table_read(table, storage_dtype)
@@ -216,10 +296,11 @@ def _stream(cfg, table, x_cm, tile, chunk, storage_dtype, slack, seg_est,
     pad = (-N) % (chunk if N > chunk else _single_pad(tile, chunk))
     xp = torch.nn.functional.pad(x, (0, pad))
     step = min(chunk, xp.shape[1])
-    caps, Lc = _tile_classes(cfg, tile, slack, seg_est, direct_frac)
+    classes = _tile_classes(cfg, tile, step // tile, slack, seg_est,
+                            seg_head, head_frac, direct_frac, caps_override)
     feats, jacs = [], []
     for n0 in range(0, xp.shape[1], step):
-        f, j = _encode_chunk_stream(cfg, read, caps, Lc, tile,
+        f, j = _encode_chunk_stream(cfg, read, classes, tile,
                                     xp[:, n0:n0 + step], jac_lo, jac_hi,
                                     with_jac)
         feats.append(f)
@@ -231,19 +312,27 @@ def _stream(cfg, table, x_cm, tile, chunk, storage_dtype, slack, seg_est,
 def streambrick_encode(cfg: BrickGridConfig, table, x_cm, tile: int = 256,
                        chunk: int = 65536, storage_dtype=None,
                        slack: float = 1.5, seg_est: int = 4,
-                       direct_frac: float = 0.7):
+                       direct_frac: float = 0.7, seg_head: int = 0,
+                       head_frac: float = 0.0, caps_override=None):
     """Encode a ray-contiguous compact stream x_cm (3, N) in [0,1]^3 ->
     (N, L*F). N is zero-padded to whole chunks (or, for one chunk, to 8
-    tiles); the pad tail forms one run."""
+    tiles); the pad tail forms one run. seg_head/head_frac: the sorted
+    head class (valid only on a stream sorted by per-ray kept count);
+    caps_override: per-level caps replacing the formula's
+    (`_tile_classes`)."""
     return _stream(cfg, table, x_cm, tile, chunk, storage_dtype, slack,
-                   seg_est, direct_frac, 0, None, False)
+                   seg_est, direct_frac, seg_head, head_frac, caps_override,
+                   0, None, False)
 
 
 def streambrick_encode_grad(cfg: BrickGridConfig, table, x_cm,
                             tile: int = 256, chunk: int = 65536,
                             jac_lo: int = 0, jac_hi: int | None = None,
                             storage_dtype=None, slack: float = 1.5,
-                            seg_est: int = 4, direct_frac: float = 0.7):
+                            seg_est: int = 4, direct_frac: float = 0.7,
+                            seg_head: int = 0, head_frac: float = 0.0,
+                            caps_override=None):
     """Encode + analytic jacobian: (feats (N, L*F), jac (3, N, L*Fj))."""
     return _stream(cfg, table, x_cm, tile, chunk, storage_dtype, slack,
-                   seg_est, direct_frac, jac_lo, jac_hi, True)
+                   seg_est, direct_frac, seg_head, head_frac, caps_override,
+                   jac_lo, jac_hi, True)

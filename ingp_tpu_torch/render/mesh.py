@@ -161,11 +161,11 @@ def extract_mesh(density_fn, params, scale, resolution=(512, 128, 512),
                  sigma_threshold=10.0, chunk=2 ** 17, out_path=None):
     """The density probe (`probe_density`) -> isosurface at
     sigma_threshold -> optional .ply at out_path, on the device of
-    params' density table. Returns (vertices (V, 3) float64 in world
+    params' density MLP. Returns (vertices (V, 3) float64 in world
     coordinates, faces (F, 3) int64), tensors on that device."""
     vol, (xs, ys, zs) = probe_density(density_fn, params, scale,
                                       tuple(resolution), chunk,
-                                      params["density_table"].device)
+                                      params["xyz_net"][0]["w"].device)
     verts, faces = marching_cubes(vol, sigma_threshold)
     step = torch.as_tensor(np.array([xs[1] - xs[0], ys[1] - ys[0],
                                      zs[1] - zs[0]]), device=verts.device)

@@ -112,8 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["hash", "brick", "fused"],
                         help="hash = multiresolution hash grid; brick "
                              "= packed brick rows; fused = brick with "
-                             "density+rgb features in one row (not "
-                             "ported)")
+                             "density+rgb features in one row")
     parser.add_argument("--table_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--pallas_composite", action="store_true",

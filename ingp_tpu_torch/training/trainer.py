@@ -20,9 +20,12 @@ batch's poses before the rays are cast, and take their own constant Adam
 at 1e-6 after the shared clip (optax.multi_transform in JAX): the
 second parameter group of the optimiser. Their gradient reaches them
 through the sample positions; the march's t values are held fixed (see
-`models/rendering.py`). The loop writes the JAX loop's validation
-images (`_dump_val_images`, :836-861). The shard_map path, the cap
-auto-calibration and the native batch loader are not ported.
+`models/rendering.py`). With `stream_autocal` (and stream dedup) the
+stream's caps come from the measured run counts of the training batches
+(`_maybe_grow_stream_caps`, :495-545), and ride the checkpoints. The
+loop writes the JAX loop's validation images (`_dump_val_images`,
+:836-861). The shard_map path and the native batch loader are not
+ported.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from ..models.ngp import (NGPConfig, hash_layout, log_radiance_to_rgb,
                           params_from_numpy, params_to_numpy, tree_map)
 from ..models.rendering import MAX_SAMPLES, RenderConfig, render_rays
 from ..ops.march import build_block_table
+from ..ops.streambrick import stream_caps
 from ..render.offline import render_chunks
 from ..utils.ckpt import AsyncCkptManager, load_ckpt, save_ckpt, slim_state
 from ..utils.loggers import make_logger
@@ -83,11 +87,14 @@ def model_config_from_hparams(h) -> NGPConfig:
         stream_slack=getattr(h, "stream_slack", 1.5),
         stream_seg=getattr(h, "stream_seg", 4),
         stream_direct_frac=getattr(h, "stream_direct_frac", 0.7),
+        stream_seg_head=getattr(h, "stream_seg_head", 20),
+        stream_head_frac=getattr(h, "stream_head_frac", 0.0),
     )
 
 
 def render_config_from_hparams(h, test=False) -> RenderConfig:
-    """The JAX trainer's mapping (T_threshold 1e-2 when test)."""
+    """The JAX trainer's mapping (T_threshold 1e-2 when test; the run
+    counts only in training, with stream_autocal and stream dedup)."""
     return RenderConfig(
         exp_step_factor=1.0 / 256 if h.dataset_name in REAL_DATASETS
         else 0.0,
@@ -97,6 +104,9 @@ def render_config_from_hparams(h, test=False) -> RenderConfig:
         march_iters=getattr(h, "march_iters", 1024),
         samples_per_ray=getattr(h, "samples_per_ray", 48),
         use_skybox=h.use_skybox,
+        run_stats=(not test and bool(getattr(h, "stream_autocal", False))
+                   and bool(getattr(h, "stream_dedup", False))),
+        stream_sort=getattr(h, "stream_sort", True),
     )
 
 
@@ -142,18 +152,11 @@ def tree_leaves(tree, prefix=()):
 
 
 def _check_ported(h):
-    """Raise on training features the port does not have yet."""
-    off = []
-    if getattr(h, "stream_head_frac", 0.0) > 0:
-        off.append("stream_head_frac")
-    if not getattr(h, "stream_sort", True):
-        off.append("stream_sort=False")
-    # cap auto-calibration and LPIPS (its weights are absent) would
-    # otherwise be dropped without a word
-    off += [k for k in ("stream_autocal", "eval_lpips")
-            if getattr(h, k, None)]
-    if off:
-        raise NotImplementedError(f"not ported yet: {off}")
+    """Raise on training features the port does not have yet: LPIPS (its
+    weights are absent), which would otherwise be dropped without a
+    word."""
+    if getattr(h, "eval_lpips", None):
+        raise NotImplementedError("not ported yet: ['eval_lpips']")
 
 
 def _datasets_from_hparams(h):
@@ -217,6 +220,10 @@ class NeRFSystem:
 
     WARMUP_STEPS = 256
     UPDATE_INTERVAL = 16
+    # cap auto-calibration: slots above the measured quantile, and the
+    # cadence of the reads (the grid's)
+    AUTOCAL_MARGIN = 8
+    AUTOCAL_EVERY = 16
     BATCH_KEYS = ("img_idxs", "pix_idxs", "uv", "rgb", "label", "depth",
                   "normal", "exposure")
     # the step's injected draws: the ray jitter, the prior's points and
@@ -344,6 +351,8 @@ class NeRFSystem:
         if h.random_bg:
             bg_color = self._on_device(bg_color) if bg_color is not None \
                 else draws["bg_color"]
+        # the run counts only on the adoption cadence (read after this
+        # step's update, hence global_step + 1)
         results = render_rays(
             self.model_cfg, self.render_cfg, p["model"],
             self.grid["bitfield"], rays_o.contiguous(), rays_d.contiguous(),
@@ -352,7 +361,8 @@ class NeRFSystem:
             exposure=b.get("exposure"),
             bg_color=bg_color if h.random_bg else None,
             skybox_gate=float(self.global_step >= self.WARMUP_STEPS),
-            block_table=self.grid["block_table"])
+            block_table=self.grid["block_table"],
+            stats_gate=(self.global_step + 1) % self.AUTOCAL_EVERY == 0)
         if self.loss_cfg.lambda_sparsity > 0:
             pts = self._on_device(sparsity_points) \
                 if sparsity_points is not None else draws["sparsity_points"]
@@ -389,6 +399,8 @@ class NeRFSystem:
             "s_per_ray": results["total_samples"] / rays_o.shape[0],
             "loss_terms": {k: v.detach().mean() for k, v in loss_d.items()},
         }
+        if "stream_runs" in results:
+            aux["stream_runs"] = results["stream_runs"]
         return aux, grads
 
     def train_step(self, batch):
@@ -410,7 +422,41 @@ class NeRFSystem:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.global_step += 1
+        if "stream_runs" in aux:
+            self._maybe_grow_stream_caps(aux["stream_runs"])
         return aux
+
+    def _maybe_grow_stream_caps(self, runs):
+        """Cap auto-calibration (JAX trainer :495-545), on its cadence:
+        the measured per-level run counts plus AUTOCAL_MARGIN, aligned up
+        to 8, floored at the formula caps (an early stream, before the
+        grid carves, measures far under them, and undersized caps
+        overflow cells into zero features) and capped at the tile; the
+        first reading is adopted, later ones only grow a level's cap.
+        The new caps replace model_cfg's; every encode after this reads
+        them, the test render's too."""
+        if self.global_step % self.AUTOCAL_EVERY:
+            return
+        runs = np.asarray(runs.cpu() if torch.is_tensor(runs) else runs)
+        if np.any(runs < 0):
+            return
+        cfg = self.model_cfg
+        tile = cfg.stream_tile
+        target = np.minimum((runs + self.AUTOCAL_MARGIN + 7) // 8 * 8, tile)
+        floor = np.asarray(stream_caps(cfg.rgb_brick_cfg, tile,
+                                       slack=cfg.stream_slack,
+                                       seg_est=cfg.stream_seg))
+        target = np.minimum(np.maximum(target, floor), tile)
+        cur = cfg.stream_caps
+        if cur is None:
+            new = tuple(int(c) for c in target)
+        elif np.any(target > np.asarray(cur)):
+            new = tuple(int(max(c, t)) for c, t in zip(cur, target))
+        else:
+            return
+        self.model_cfg = dataclasses.replace(cfg, stream_caps=new)
+        print(f"[autocal] step {self.global_step}: stream caps -> {new}",
+              flush=True)
 
     def maybe_update_grid(self):
         """The grid refresh every UPDATE_INTERVAL steps (every cell while
@@ -482,14 +528,18 @@ class NeRFSystem:
 
     # ------------------------------------------------------------------
     def state(self):
-        """{"params", "opt_state": adam_state_to_numpy(), "grid", "step"}:
-        numpy copies, the JAX package's layouts (its `state()` less the
-        auto-calibrated stream caps, which the port does not have)."""
-        return {"params": self.params_to_numpy(),
-                "opt_state": self.adam_state_to_numpy(),
-                "grid": {k: _host_array(v.cpu())
-                         for k, v in self.grid.items()},
-                "step": self.global_step}
+        """{"params", "opt_state": adam_state_to_numpy(), "grid", "step"
+        [, "stream_caps" (L,) int32, the auto-calibrated caps once
+        adopted]}: numpy copies, the JAX package's layouts."""
+        s = {"params": self.params_to_numpy(),
+             "opt_state": self.adam_state_to_numpy(),
+             "grid": {k: _host_array(v.cpu())
+                      for k, v in self.grid.items()},
+             "step": self.global_step}
+        if self.model_cfg.stream_caps is not None:
+            s["stream_caps"] = np.asarray(self.model_cfg.stream_caps,
+                                          np.int32)
+        return s
 
     def save(self, path):
         save_ckpt(path, self.state())
@@ -500,7 +550,8 @@ class NeRFSystem:
     def load_state(self, state):
         """Load a state() tree (numpy or CPU tensor leaves). The params it
         holds replace the system's (a slim checkpoint's too), its Adam
-        state and grid where it has them; the step always."""
+        state, grid and adopted stream caps where it has them; the step
+        always."""
         new = params_from_numpy(
             tree_map(_host_array, state["params"]), self.device,
             self.model_cfg)
@@ -529,6 +580,10 @@ class NeRFSystem:
                 grid["block_table"] = build_block_table(
                     grid["bitfield"], cfg.grid_size, cfg.cascades)
             self.grid = grid
+        if state.get("stream_caps") is not None:
+            caps = tuple(int(c) for c in _host_array(state["stream_caps"]))
+            self.model_cfg = dataclasses.replace(self.model_cfg,
+                                                 stream_caps=caps)
         self.global_step = int(state.get("step", 0))
 
     # ------------------------------------------------------------------

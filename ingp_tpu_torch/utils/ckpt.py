@@ -2,10 +2,12 @@
 ingp_tpu/utils/ckpt.py).
 
 A checkpoint is one file holding the system's state tree: full
-checkpoints carry {params, opt_state, grid, step} (NeRFSystem.state:
-the JAX package's layouts, Adam as {mu, nu, count}); `slim_state` keeps
-the weights and the step only (the grid re-warms on load, as the JAX
-package's slim checkpoints do). Leaves are stored as CPU tensors, so
+checkpoints carry {params, opt_state, grid, step} and, once the cap
+auto-calibration has adopted caps, stream_caps (NeRFSystem.state: the
+JAX package's layouts, Adam as {mu, nu, count}); `slim_state` keeps the
+weights, the step and the adopted caps (the grid re-warms on load, as
+the JAX package's slim checkpoints do; those drop the caps, so a model
+loaded from one would encode with other caps than it trained with). Leaves are stored as CPU tensors, so
 `torch.load(weights_only=True)` reads them back; every write goes to a
 temporary name first and is committed with `os.replace`, so a crash
 never leaves a half-written checkpoint under the final name.
@@ -68,7 +70,8 @@ def load_ckpt(path):
 
 
 def slim_state(state, keep_embedding=True, keep_msk=True, keep_ext=False):
-    """The weights and step of a state, without optimiser and grid."""
+    """The weights, step and adopted stream caps of a state, without
+    optimiser and grid."""
     params = dict(state["params"])
     if not keep_embedding:
         params.pop("embedding_a", None)
@@ -76,7 +79,10 @@ def slim_state(state, keep_embedding=True, keep_msk=True, keep_ext=False):
         params.pop("msk", None)
     if not keep_ext:
         params.pop("ext", None)
-    return {"params": params, "step": state.get("step", 0)}
+    slim = {"params": params, "step": state.get("step", 0)}
+    if state.get("stream_caps") is not None:
+        slim["stream_caps"] = state["stream_caps"]
+    return slim
 
 
 def extract_model_state(state):

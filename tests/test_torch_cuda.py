@@ -34,7 +34,7 @@ def _lf(rng, *shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("F", [4, 8])
+@pytest.mark.parametrize("F", [4, 8, 16])
 def test_k1_matches_plain(cuda, dtype, F):
     rng = np.random.default_rng(0)
     B, U, K, W, R = 24, 48, 256, 32 * F, 700
@@ -114,7 +114,8 @@ def _on(t, cuda, mask=None):
 # refresh) gives the backward no jacobian cotangent
 @pytest.mark.parametrize("with_dj", [True, False])
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("F,window", [(8, (0, None)), (4, (1, 3))])
+@pytest.mark.parametrize("F,window", [(8, (0, None)), (4, (1, 3)),
+                                      (16, (0, 8))])
 def test_k1_bwd_matches_plain(cuda, bf16, F, window, with_dj):
     rng = np.random.default_rng(3)
     B, U, K, R = 24, 48, 256, 300
@@ -230,6 +231,29 @@ def test_k1_bwd_plans_bitwise(cuda, bf16, kind, B, K, U):
     assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("kind,B,K,U", [("training", 384, 256, 64),
+                                        ("long rows", 16, 600, 192),
+                                        ("outside", 64, 256, 192)])
+def test_k1_bwd_f16_plans_bitwise(cuda, bf16, kind, B, K, U):
+    """The fused encoder's launches: F = 16, jacobian window [0, 8), each
+    slot its own row, bf16 staging in two 16-byte words a corner."""
+    rng = np.random.default_rng(17)
+    uid, lf, df, dj = _k1_bwd_inputs(rng, kind, B, K, U, 16)
+    dj = dj[:24].contiguous()
+    urows = torch.arange(B * U, dtype=torch.int32).reshape(B, U)
+    ref = k1.fused_ray_reduce_bwd_plain(torch.zeros(B * U, 512), urows, uid,
+                                        lf, df, dj, 16, 0, 8, bf16)
+    n0 = build.LAUNCHES["ingp_ray_reduce_bwd"]
+    out = k1.fused_ray_reduce_bwd(
+        torch.zeros((B * U, 512), device=cuda), urows.to(cuda), uid.to(cuda),
+        lf.to(cuda), df.to(cuda), dj.to(cuda), 16, 0, 8, bf16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ingp_ray_reduce_bwd"] == n0 + 1
+    assert float(ref.abs().max()) > 0
+    assert torch.equal(out.cpu(), ref)
+
+
 def test_k1_bwd_training_shapes(cuda):
     """Training's recorded launch: uid (768, 256), U 192, F = Fj = 8,
     bf16, slots on rows of a density-sized table (rows shared between
@@ -270,7 +294,10 @@ def test_k1_bwd_needs_16_byte_rows(cuda):
     (4, 3_037, 8, (0, None), torch.float32),       # a ragged last tile
     (16, 1_000, 8, (0, None), torch.bfloat16),     # Lw 16 with the jacobian
     (3, 1_001, 4, (1, 3), torch.float32),          # S*Lw < 256, odd planes
-    (5, 77, 2, (1, 2), torch.bfloat16)])
+    (5, 77, 2, (1, 2), torch.bfloat16),
+    (11, 40_000, 16, (0, 8), torch.bfloat16),      # fused, direct levels
+    (16, 3_037, 16, (0, 8), torch.float32),        # fused, per sample
+    (16, 5_000, 16, None, torch.bfloat16)])        # fused, grid refresh
 def test_k2_tiles_match_plain(cuda, Lw, N, F, window, dtype):
     rng = np.random.default_rng(9)
     W, R = 32 * F, 2_000
@@ -388,7 +415,12 @@ def _gather_edges(cuda, pg):
     refused; at least 32 blocks for the new bodies at the probe's
     shapes."""
     # pytest puts tests/ on sys.path (it holds no package); `tests.` may
-    # name another package installed on the card's machine
+    # name another package installed on the card's machine, so the
+    # module's own `tests._torch_threads` import is given this
+    # directory's module
+    import sys
+    import _torch_threads
+    sys.modules.setdefault("tests._torch_threads", _torch_threads)
     from test_torch_gather_redesign import plan
     for op, t_shape, i_shape in pg.edge_checks(cuda):
         assert pg.launch_shape(op, t_shape, i_shape) == {
@@ -453,7 +485,9 @@ def _k2b_case(rng, Lw, N, F, Fj, R, own_rows, with_dj):
     (4, 196_608, 8, (0, None), False),     # training's rgb launch
     (16, 1_000, 8, (0, None), True),
     (3, 1_001, 4, (1, 3), True),
-    (5, 77, 2, (1, 2), True)])
+    (5, 77, 2, (1, 2), True),
+    (11, 20_000, 16, (0, 8), True),        # fused, direct levels
+    (16, 1_000, 16, (0, 8), False)])
 def test_k2_bwd_tiles_bitwise(cuda, bf16, Lw, N, F, window, with_dj):
     """Each cell on its own row: no two atomics meet, so the kernel must
     give the plain version's bits (strided cotangents, ragged tiles,
@@ -480,7 +514,7 @@ def test_k2_bwd_tiles_bitwise(cuda, bf16, Lw, N, F, window, with_dj):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("F,window,with_dj", [
     (8, (0, None), True), (4, (1, 3), True), (8, (0, None), False),
-    (2, (0, None), True)])
+    (2, (0, None), True), (16, (0, 8), True), (16, (0, 8), False)])
 def test_k2_bwd_pos_matches_plain(cuda, dtype, F, window, with_dj):
     """The K2 backward's position-cotangent variant: strided cotangents,
     -9 cells and rows outside the table (exact zeros), jacobian windows,

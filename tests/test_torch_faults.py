@@ -1,11 +1,12 @@
 """The port's trainer reads every hparam the JAX trainer reads, or refuses
 it: `seed` seeds the port's generator (an explicit `seed=` still wins),
 `ckpt_load` loads its checkpoint, `optimize_ext` adds the pose
-corrections and their optimiser group, and `stream_autocal`,
-`eval_lpips`, `stream_head_frac` and the `fused` encoder, which the
-port has not ported, raise NotImplementedError instead of being dropped;
-so do the CLI flags that `ingp_tpu_torch.train.main` cannot honour yet,
-and a dataset's per-ray exposure (JAX's own step fails on it). The model
+corrections and their optimiser group, `stream_autocal`,
+`stream_head_frac` and the `fused` encoder reach the configs and a step
+runs with each, and `eval_lpips`, which the port has not ported, raises
+NotImplementedError instead of being dropped; so do the CLI flags that
+`ingp_tpu_torch.train.main` cannot honour yet, and a dataset's per-ray
+exposure (JAX's own step fails on it). The model
 features `embed_a`, `embed_msk`, `random_bg`, `use_skybox` and
 `use_exposure` are honoured: each changes the parameters or the step."""
 from types import SimpleNamespace
@@ -96,10 +97,25 @@ def test_hparam_honoured_or_refused(hparam, tmp_path):
         assert "ext" not in tt.NeRFSystem(_hparams(), tr,
                                           device="cpu").params
         return
+    if hparam == "eval_lpips":
+        with pytest.raises(NotImplementedError, match=hparam):
+            _params(_hparams(eval_lpips=True))
+        return
+    # honoured: each reaches the configs, and a step runs with it
     kw = {"encoder": "fused"} if hparam == "fused" else \
         {hparam: 0.5 if hparam == "stream_head_frac" else True}
-    with pytest.raises(NotImplementedError, match=hparam):
-        _params(_hparams(**kw))
+    tr = SyntheticDataset(split="train", img_size=8, n_train=2)
+    system = tt.NeRFSystem(_hparams(**kw), tr, device="cpu")
+    if hparam == "fused":
+        assert set(system.params["model"]) >= {"grid_table"}
+        assert "density_table" not in system.params["model"]
+    elif hparam == "stream_head_frac":
+        assert system.model_cfg.stream_head_frac == 0.5
+    else:
+        assert system.render_cfg.run_stats
+    aux = system.training_step(tr.sample_batch(np.random.default_rng(0),
+                                               256))
+    assert np.isfinite(float(aux["loss"]))
 
 
 # flags of the CLI that `train.main` refuses at its start, with what they

@@ -237,13 +237,19 @@ def test_ngp_forward_row_major_matches(encoder):
 
 
 def test_only_fused_is_refused():
-    for kw in (dict(use_skybox=True), dict(embed_a=True),
-               dict(rgb_act="none")):
-        tngp.ngp_init(tngp.NGPConfig(density_L=2, rgb_L=2, density_log2T=10,
-                                     rgb_log2T=10, encoder="brick", **kw),
-                      prng.prng_key(0))
-    with pytest.raises(NotImplementedError, match="fused"):
-        tngp.ngp_init(tngp.NGPConfig(encoder="fused"), prng.prng_key(0))
+    """Every encoder initialises with the features, the fused one too
+    (its one grid table in place of the two); an unknown encoder is
+    refused."""
+    for enc in ("brick", "fused"):
+        for kw in (dict(use_skybox=True), dict(embed_a=True),
+                   dict(rgb_act="none")):
+            p = tngp.ngp_init(tngp.NGPConfig(density_L=2, rgb_L=2,
+                                             density_log2T=10, rgb_log2T=10,
+                                             encoder=enc, **kw),
+                              prng.prng_key(0))
+            assert ("grid_table" in p) == (enc == "fused")
+    with pytest.raises(ValueError, match="encoder"):
+        tngp.ngp_init(tngp.NGPConfig(encoder="other"), prng.prng_key(0))
 
 
 # ------------------------------------------------------------- the mask

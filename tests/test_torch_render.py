@@ -57,15 +57,11 @@ def _fields(cfg, drop):
 
 
 # JAX-only fields: the port has no remat policy, always composites
-# through K3, always sorts the training stream, keeps the random
-# background and the header-gradient stop out of its render config (the
-# trainer reads hparams.random_bg; the test render always stops the
-# heads' gradients), and does not port the sorted stream's head-class
-# caps or the run statistics of the cap auto-calibration
-JAX_ONLY_MODEL = ["encode_remat", "stream_seg_head", "stream_head_frac",
-                  "stream_caps"]
-JAX_ONLY_RENDER = ["pallas_composite", "random_bg", "stop_header_grads",
-                   "run_stats", "stream_sort"]
+# through K3, and keeps the random background and the header-gradient
+# stop out of its render config (the trainer reads hparams.random_bg;
+# the test render always stops the heads' gradients)
+JAX_ONLY_MODEL = ["encode_remat"]
+JAX_ONLY_RENDER = ["pallas_composite", "random_bg", "stop_header_grads"]
 
 
 def test_config_mapping_matches():

@@ -52,10 +52,11 @@ def test_caps_groups_and_split_match():
         Lc = js.split_levels(caps, tile, 0.7)
         assert ts.split_levels(caps, tile, 0.7) == Lc
         assert ts.group_levels(caps[:Lc]) == js.group_levels(caps[:Lc])
-        # the test render's stream is unsorted: one tile class, formula
-        # caps, no override
+        # an unsorted stream (the test render's): one tile class,
+        # formula caps, no override
         for slack, seg in ((1.5, 4), (1.2, 8)):
-            assert [ts._tile_classes(tc, tile, slack, seg, 0.7) + (32,)] \
+            assert ts._tile_classes(tc, tile, 32, slack, seg, 0, 0.0, 0.7,
+                                    None) \
                 == js._tile_classes(jc, tile, 32, slack, seg, 0, 0.0, 0.7,
                                     None)
 

@@ -42,6 +42,11 @@ VARIANTS = {
     "brick, per sample": dict(stream_dedup=False),
     # test_torch_sparsity.py
     "brick, sparsity prior": dict(sparsity_loss=1e-3),
+    # test_torch_fused.py, test_torch_stream_options.py
+    "fused, head class": dict(encoder="fused", stream_head_frac=0.5),
+    "fused, per sample, ext": dict(encoder="fused", stream_dedup=False,
+                                   optimize_ext=True),
+    "brick, unsorted": dict(stream_sort=False),
 }
 
 
@@ -59,9 +64,18 @@ def setup(variant):
     h = hparams(**VARIANTS[variant])
     jsys = jt.NeRFSystem(h, JData(split="train", img_size=24, n_train=4))
     params = jax.tree.map(lambda a: np.array(a, np.float32), jsys.params)
-    params["model"]["density_table"] *= 1e4
-    params["model"]["rgb_table"] *= 1e3
     cfg = jsys.model_cfg
+    model = params["model"]
+    if "grid_table" in model:
+        # the fused table: each point's density features, then rgb's
+        fd = cfg.density_F
+        g = model["grid_table"][:, :27 * (fd + cfg.rgb_F)].reshape(
+            -1, 27, fd + cfg.rgb_F)
+        g[..., :fd] *= 1e4
+        g[..., fd:] *= 1e3
+    else:
+        model["density_table"] *= 1e4
+        model["rgb_table"] *= 1e3
     dg = sphere_density_grid(cfg.grid_size, cfg.cascades, cfg.scale)
     bits = jp.packbits_u32(dg.reshape(-1), 0.5)
     tr = SyntheticDataset(split="train", img_size=24, n_train=4)
@@ -89,10 +103,10 @@ def jax_step(jsys, params, bits, batch):
             jax.tree.map(N, st))
 
 
-def check_step(variant):
+def check_step(variant, norm_frac=3e-4):
     """One step of `variant` on both sides: the loss (and the prior's
     term), every clipped gradient leaf, the update and the parameters,
-    to test_torch_train.py's bounds."""
+    to test_torch_train.py's bounds (norm_net's at norm_frac)."""
     h, jsys, params, bits, tr, grid, batch = setup(variant)
     aux_j, params_j, st_j = jax_step(jsys, params, bits, batch)
     mu_j, _ = _adam_moments(st_j)
@@ -115,7 +129,7 @@ def check_step(variant):
     g_port = tngp.params_to_numpy(grads, cfg)
     g_j = jax.tree.map(lambda m: m / np.float32(1 - 0.9), mu_j)
     for name in g_port["model"]:
-        frac = 3e-4 if name == "norm_net" else 1e-4
+        frac = norm_frac if name == "norm_net" else 1e-4
         _leaf_close(g_port["model"][name], g_j["model"][name], frac, name)
     p0 = psys.params_to_numpy()
     psys.train_step(batch)
