@@ -9,6 +9,11 @@ Phases, each line flushed and stamped with elapsed seconds:
 
 1. device: torch's device name and nvidia-smi's name and power limit;
 2. build: one nvcc call compiles ingp_tpu_torch/kernels/csrc/*.cu;
+2b. native: g++ builds the native batch sampler's library (fit's
+   default sampler), whose 100 batches of bench.py's dataset at 8192
+   rays must equal the direct gather rays[img, pix] (and the labels,
+   normals and uv) and a second sampler's of the same seed; ms a batch
+   beside the numpy sampler's;
 3. render: NeRFSystem.render_image of one 256x256 synthetic test view
    at the bench's full model width (bf16 brick tables of 2^19 / 2^21
    parameters per level, 16 levels, capacity 48, 24 samples per ray),
@@ -48,7 +53,10 @@ Phases, each line flushed and stamped with elapsed seconds:
    `full` variants) are held to the same outputs (K3 forward's ws, Ts
    and count bitwise) and timed beside them on the recorded inputs, from
    the host and from a CUDA graph, K2 backward also on the last untimed
-   step's launches with the K2 bwd split's stubs;
+   step's launches with the K2 bwd split's stubs; then `fit` for 32
+   steps with hparams.profile_dir set: the Chrome trace must hold 10
+   "train_step" ranges (steps 20-29) and name the K1, K2 and K3 kernels
+   (its path and size printed);
 7. features: configs/Playground.txt's model flags (appearance codes of
    8, the transient mask, the random background) and the skybox on the
    training step of phase 6 at full width: 3 untimed steps with the
@@ -80,6 +88,22 @@ Phases, each line flushed and stamped with elapsed seconds:
    test view with the adopted caps;
 9. train reference: one small training step on the card and on the CPU
    from the same parameters, batch and noise must agree;
+9b. parallel: data parallelism at bench.py's width with --num_gpus
+   semantics, two ranks (spawned processes) on the one card over gloo
+   (NCCL refuses two ranks on one card), 4096 rays each of the 8192-ray
+   global batch: (a) f32 at a non-binding budget (capacity = samples a
+   ray = 24), step 1's mean loss to rtol 1e-4 of one process's on the
+   same global batch and draws, its averaged gradients to 1e-4 of each
+   leaf's largest value, the ranks' parameters bitwise equal after 3
+   steps; (b) the bench's binding budget (48 / 24, bf16), 3 steps'
+   losses to rtol 5e-3 of one process's, rank 0's first-step kernel
+   launches against their plain versions on the CPU at phase 6's
+   tolerances, launches a step per rank, step ms, global rays/s,
+   all-reduce ms and peak memory per rank; the sharded 256x256 view
+   against one process's at rtol 1e-4, atol 1e-5; then
+   `ingp_tpu_torch.train.main` with --distributed over localhost TCP
+   for 20 steps of configs/synthetic_smoke.txt, validating round-robin,
+   both ranks returning the same metrics. A rank that fails fails it;
 10. probes: the probes' own path (ingp_tpu_torch/probes, the Hopper
    forms of the TPU layout probes under benchmarking/; what each
    module's main() runs on the card, `probes.common.measure`) over
@@ -125,7 +149,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    writer puts under .../Synthetic_NeRF/Lego (100 train and 4 test
    opaque RGBA views of 800x800, Paeth-filtered rows; the loader's Lego
    scale): the train split's load seconds, the ms per image spent
-   decoding and unfiltering (the g++-built helper), 800 steps of 16,384
+   decoding and unfiltering (the g++-built helper), 500 steps of 16,384
    rays at the config's own model (the hash encoder: K3 forward and
    backward), median ms per step, rays/s, peak memory, launches per
    step; the losses finite and falling and the test PSNR at least 5 dB
@@ -141,15 +165,16 @@ Phases, each line flushed and stamped with elapsed seconds:
    fixture for 20 steps, through `train.main` without --no_save_test, so
    that it ends with `render_for_test` of the fixture's camera path;
 14. offline, in phase 13's working directory: `render_for_test(hparams,
-   system=...)` of the 4 test views and `extract_mesh` at 512x128x512
+   system=...)` of the first of the 4 test views (OFFLINE_BRICK_VIEWS)
+   and `extract_mesh` at 512x128x512
    (sigma 10) on phase 13's brick system, timed, with the launch counts
    set to 0 before each, the first render chunk's K1, K2 and K3 forward
    variants and the first probe chunk's K2 forward held against their
    plain versions on the CPU as in phase 6; then the three CLIs on
-   lego's `last` checkpoint: `render_cli` (4 views of 800x800 with the
-   ms per view and rays/s, rgb.mp4 or the skip line, and frame 0 equal
-   to phase 13's `_dump_val_images` of the same view), the panorama at
-   512x1024 (its three PNGs read back, the opacity mean) and
+   lego's `last` checkpoint: `render_cli` (the first test view, 800x800,
+   with the ms per view and rays/s, rgb.mp4 or the skip line, and the
+   frame equal to phase 13's `_dump_val_images` of the same view), the
+   panorama at 512x1024 (its three PNGs read back, the opacity mean) and
    `extract_mesh_cli` at 512x128x512 with --sigma_threshold 10 (the
    probe's and the isosurface's ms, the vertex and face counts, the .ply
    header read back, a non-empty mesh with every vertex inside the
@@ -161,7 +186,7 @@ Phases, each line flushed and stamped with elapsed seconds:
    with OXTS, semantic PNGs and .npy normals; the port's own writer);
    configs/kitti360_nvs_1538.txt less its depth_mono line (no loader
    gives a mono depth; JAX's step fails on it) through `train.main` for
-   100 steps with its window cut to the fixture's 16 frames and one test
+   48 steps with its window cut to the fixture's 16 frames and one test
    frame, the frames loaded at downsample 0.5 (704x188, the uint8
    resize), to its end-of-run render (every PNG read back); then, on
    the loaded datasets, 16 steps with --optimize_ext on the config's
@@ -1305,6 +1330,7 @@ def phase_train(h):
             raise AssertionError(f"non-finite parameter {path}")
     stats = {"step_ms": step_ms, "rays_per_s": STEPS_MEASURE * BATCH / dt,
              "peak_gib": peak, "held_gib": held}
+    profile_fit(system)
     return system, checks, launches, stats
 
 
@@ -2396,14 +2422,15 @@ def phase_quality():
 # phase "data": configs/lego.txt from disk at its full width on an NSVF
 # fixture of the sphere scene (DATA_VIEWS train and test views of 800 px,
 # as Synthetic-NeRF's), DATA_STEPS steps (the test PSNR must clear the
-# constant image's by DATA_PSNR_MARGIN; fewer steps fell short of it,
-# PERF.md); the same with the bench's brick model
+# constant image's by DATA_PSNR_MARGIN; on the native sampler's stream
+# 500 steps clear it by 5.79 dB and 800 by 6.12 on an H100, PERF.md;
+# 500 leave the run's time limit room); the same with the bench's brick model
 # (BRICK_FLAGS) for DATA_BRICK_STEPS steps, whose kernels are checked at
 # lego's batch; configs/Playground.txt on a small TNT fixture
 LEGO_CONFIG = "configs/lego.txt"
 PLAYGROUND_CONFIG = "configs/Playground.txt"
 DATA_VIEWS = (100, 4)
-DATA_STEPS, DATA_BRICK_STEPS, TNT_STEPS = 800, 20, 20
+DATA_STEPS, DATA_BRICK_STEPS, TNT_STEPS = 500, 20, 20
 BRICK_FLAGS = ["--encoder", "brick", "--stream_dedup", "--compute_dtype",
                "bfloat16", "--table_dtype", "bfloat16", "--capacity", "48",
                "--samples_per_ray", "24"]
@@ -2702,13 +2729,14 @@ KITTI_CONFIG = "configs/kitti360_nvs_1538.txt"
 KITTI_FRAMES = (1538, 1554)   # the window's 16 frames (the config's 64)
 KITTI_TEST_ID = 1545          # one test frame (the config's 5)
 # the config's run loads the 1408x376 frames at downsample 0.5 (the uint8
-# resize) and takes 100 steps: the grid's warmup sweeps (every 16 steps,
+# resize) and takes 50 steps: the grid's warmup sweeps (every 16 steps,
 # 4 cascades of 128^3 cells through the plain hash encoder) and the
-# validation and render of the test views took ~80 s of its 300 steps'
-# ~95 s (PR 16 calls 2-3)
+# validation and render of the test views take most of its time (PERF.md
+# §5); 48 steps hold 3 sweeps (20 were too few for its loss to fall),
+# which leaves the run's time limit room
 KITTI_DOWNSAMPLE = 0.5
 # EXT_STEPS: the grid's second warmup sweep comes at step 16, outside
-KITTI_STEPS, EXT_STEPS, HIGHBAY_STEPS = 100, 16, 10
+KITTI_STEPS, EXT_STEPS, HIGHBAY_STEPS = 48, 16, 10
 HIGHBAY_WH = (160, 100)       # 2 valid stereo frames of 4
 # the position-cotangent variant of the K2 backward: its kernels line row
 POS_KERNEL = ("brick_reduce_bwd_pos", "ingp_brick_reduce_bwd_pos",
@@ -2999,15 +3027,15 @@ def phase_kitti():
 # Mega-NeRF's Mill19 scale with the bench's stream-brick encoder, and the
 # two out-of-memory ray stores
 MEGA_WH = (4608, 3456)         # Mill19's frames (mega_fixture.MILL19_WH)
-MEGA_FRAMES = (4, 1)           # train, val
+MEGA_FRAMES = (2, 1)           # train, val (cut for the run's time)
 MEGA_DOWNSAMPLE = 0.25         # 1152x864, the scale Mega-NeRF trains at
-MEGA_STEPS = 300
+MEGA_STEPS = 150
 MEGA_QUALITY = 95
 MEGA_PSNR = 35.0               # decoded full-size frame against its pixels
 # small JPEGs (h, w) for the helper against the plain decoder: partial
 # MCUs on both edges, one MCU, one pixel
 MEGA_SMALL = ((37, 53), (17, 33), (16, 16), (1, 1))
-# the test render's cut: the test split is the 4 train frames at
+# the test render's cut: the test split is the train frames at
 # 1152x864, and after 300 steps the grid is still about half occupied (its
 # refresh keeps max(0.95 x old, new) every 16 steps), so every ray fills
 # its capacity; on an H100 (700 W) the validation and the end-of-run
@@ -3404,6 +3432,10 @@ def phase_profile(system, ds, train_system):
 OFFLINE_PANO_HW = (512, 1024)
 OFFLINE_MESH_RES = (512, 128, 512)
 OFFLINE_SIGMA = 10.0
+# the brick system's render_for_test renders the first of the 4 test
+# views (~11-21 s a view, host-bound), which leaves the run's time limit
+# room for phase "parallel"
+OFFLINE_BRICK_VIEWS = 1
 
 
 class Tap(Patch):
@@ -3493,15 +3525,23 @@ def offline_brick(system):
     from ingp_tpu_torch.models.ngp import ngp_sigma
     from ingp_tpu_torch.render import mesh as mesh_mod
     from ingp_tpu_torch.render import offline as offline_mod
+    import copy
     h = system.hparams
     h.exp_name = "lego_brick"
     cfg = system.model_cfg
-    te = system.test_dataset
+    full = system.test_dataset
+    te = copy.copy(full)
+    te.poses = full.poses[:OFFLINE_BRICK_VIEWS]
+    te.rays = full.rays[:OFFLINE_BRICK_VIEWS]
     w, hh = te.img_wh
     n = len(te.poses)
-    with FirstCall(offline_mod, "render_rays_test", cfg, FWD) as first, \
-            Span(offline_mod, "render_for_test") as span:
-        out_dir = offline_mod.render_for_test(h, system=system)
+    system.test_dataset = te
+    try:
+        with FirstCall(offline_mod, "render_rays_test", cfg, FWD) as first, \
+                Span(offline_mod, "render_for_test") as span:
+            out_dir = offline_mod.render_for_test(h, system=system)
+    finally:
+        system.test_dataset = full
     per_view = {k: span.launches[k] / n for k in FWD}
     log(f"offline brick render: render_for_test, {n} views of {w}x{hh} in "
         f"chunks of {h.chunk_size} rays: {span.seconds / n * 1e3:.2f} ms "
@@ -3593,11 +3633,31 @@ def frame0_against_dump(system, img, dump_png, first_view):
     return failures
 
 
+def first_test_view_root(root):
+    """A sibling of the NSVF fixture root whose test split is its first
+    test view alone (links to the fixture's files: every train frame, so
+    that the checkpoint's per-image tables fit, and the first test
+    frame)."""
+    import glob
+    import os
+    view0 = f"{root}_view0"
+    for sub in ("rgb", "pose"):
+        os.makedirs(os.path.join(view0, sub), exist_ok=True)
+        names = sorted(glob.glob(os.path.join(root, sub, "0_*")))
+        names += sorted(glob.glob(os.path.join(root, sub, "2_*")))[:1]
+        for path in names:
+            os.symlink(path, os.path.join(view0, sub, os.path.basename(path)))
+    for name in ("intrinsics.txt", "bbox.txt"):
+        os.symlink(os.path.join(root, name), os.path.join(view0, name))
+    return view0
+
+
 def offline_lego(lego_argv, dump_png):
     """The three CLIs on lego's `last` checkpoint (the hash model of phase
-    "data", in its working directory): render_cli (the 4 test views, an
-    mp4 or the skip line, frame 0 against phase "data"'s dump of the same
-    view), render_panorama_cli and extract_mesh_cli. Returns failures."""
+    "data", in its working directory): render_cli (on the first test view
+    alone, `first_test_view_root`, to keep the run's time; an mp4 or the
+    skip line, frame 0 against phase "data"'s dump of the same view),
+    render_panorama_cli and extract_mesh_cli. Returns failures."""
     import os
     import shutil
     import numpy as np
@@ -3612,7 +3672,10 @@ def offline_lego(lego_argv, dump_png):
             Clock(offline_mod, "render_chunks", sync=True) as chunks, \
             Tap(offline_mod, "_load_last", lambda a, k, out: a[0]) as sys_, \
             budget_taps() as budget:
-        out_dir = render_cli.main(lego_argv)
+        i = lego_argv.index("--root_dir") + 1
+        out_dir = render_cli.main(
+            lego_argv[:i] + [first_test_view_root(lego_argv[i])]
+            + lego_argv[i + 1:])
     names = sorted(os.listdir(out_dir))
     frames = [x for x in names if x.endswith("_rgb.png")]
     n = len(frames)
@@ -3629,7 +3692,7 @@ def offline_lego(lego_argv, dump_png):
     log(f"offline render_cli: rgb.mp4 "
         f"{'written' if has_mp4 else 'skipped'} (ffmpeg on PATH: "
         f"{shutil.which('ffmpeg')})")
-    if n != DATA_VIEWS[1] or has_mp4 != bool(shutil.which("ffmpeg")):
+    if n != 1 or has_mp4 != bool(shutil.which("ffmpeg")):
         failures.append(f"render_cli wrote {names}")
     failures += frame0_against_dump(sys_.seen[0], img, dump_png,
                                     budget.seen[:len(budget.seen) // n])
@@ -3859,6 +3922,385 @@ def phase_offline(brick, lego_argv, dump_png, tnt_span, traj_frames):
     return checks
 
 
+# ---------------------------------------------------------------- native
+
+NATIVE_BATCHES = 100
+
+
+def phase_native():
+    """The native batch sampler (`ingp_tpu_torch.native`) that `fit` draws
+    from by default: its library built by g++ here, NATIVE_BATCHES
+    batches of bench.py's dataset at BATCH rays held to the direct gather
+    rays[img, pix] (rgb, labels, normals, uv) and to a second sampler of
+    the same seed (batch n is a function of (seed, n)); ms a batch beside
+    the numpy sampler's."""
+    import numpy as np
+    from ingp_tpu_torch.data.synthetic import SyntheticDataset
+    from ingp_tpu_torch.native import NativeBatchSampler, build
+    t = time.time()
+    path = build.build_library(force=True)
+    log(f"native: g++ built {path.name} in {time.time() - t:.2f} s")
+    tr = SyntheticDataset(split="train", img_size=IMG_SIZE, n_train=N_VIEWS)
+    w = tr.img_wh[0]
+    with NativeBatchSampler(tr, BATCH, seed=0) as a, \
+            NativeBatchSampler(tr, BATCH, seed=0) as b:
+        t = time.perf_counter()
+        got = [a.next_batch() for _ in range(NATIVE_BATCHES)]
+        native_ms = (time.perf_counter() - t) / NATIVE_BATCHES * 1e3
+        for i, x in enumerate(got):
+            img, pix = x["img_idxs"], x["pix_idxs"]
+            direct = {"rgb": tr.rays[img, pix][:, :3],
+                      "label": tr.labels[img, pix],
+                      "normal": tr.normals[img, pix],
+                      "uv": np.stack([pix // w, pix % w], -1
+                                     ).astype(np.float32)}
+            for k, v in direct.items():
+                if not np.array_equal(x[k], v):
+                    raise AssertionError(f"native batch {i}: {k} is not "
+                                         f"the direct gather")
+            y = b.next_batch()
+            for k in x:
+                if not np.array_equal(x[k], y[k]):
+                    raise AssertionError(f"native batch {i}: {k} differs "
+                                         f"between two samplers of seed 0")
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    for _ in range(NATIVE_BATCHES):
+        tr.sample_batch(rng, BATCH)
+    numpy_ms = (time.perf_counter() - t) / NATIVE_BATCHES * 1e3
+    log(f"native: {NATIVE_BATCHES} batches of {BATCH} rays equal to the "
+        f"direct gather and to a second sampler; {native_ms:.3f} ms a "
+        f"batch (the consumer's wait and copy; the gather runs on the "
+        f"sampler's thread), numpy sample_batch {numpy_ms:.3f} ms")
+    return {"native_ms": native_ms, "numpy_ms": numpy_ms}
+
+
+# -------------------------------------------------------------- parallel
+
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3
+PARALLEL_CLI_STEPS = 20
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _param_digest(system):
+    import hashlib
+    from ingp_tpu_torch.training.trainer import tree_leaves
+    h = hashlib.sha256()
+    for _, t in tree_leaves(system.params):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grads_close(what, got, ref, tol=1e-4):
+    """Each leaf of got within tol of the largest |value| of ref's."""
+    from ingp_tpu_torch.training.trainer import tree_leaves
+    worst = 0.0
+    for (path, a), (_, b) in zip(tree_leaves(got), tree_leaves(ref)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"{what}: gradient {path}: {err} > {tol} "
+                                 f"x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def _parallel_rank(rank, port, cli_port, workdir, queue):
+    """One rank of phase "parallel" (a process of its own, on the one
+    card): --num_gpus semantics over gloo for (a), (b) and the render,
+    then the --distributed CLI. Rank 0 also runs the single-process
+    references and checks its first step's kernels."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ingp_tpu_torch import train as train_cli
+    from ingp_tpu_torch.data.synthetic import SyntheticDataset
+    from ingp_tpu_torch.parallel import init_distributed, world_from_group
+    from ingp_tpu_torch.training import trainer as tt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", PARALLEL_RANKS, rank,
+                     device=DEVICE)
+    world = world_from_group(DEVICE)
+    main = rank == 0
+    out = {"rank": rank, "backend": world.backend,
+           "device": str(world.device)}
+    tr = SyntheticDataset(split="train", img_size=IMG_SIZE, n_train=N_VIEWS)
+    te = SyntheticDataset(split="test", img_size=IMG_SIZE, n_test=1)
+    rng = np.random.default_rng(1)
+    batches = [tr.sample_batch(rng, BATCH) for _ in range(PARALLEL_STEPS)]
+
+    def staged(system, b):
+        return {**system.stage_batch(system.draws_for(BATCH)),
+                **stage(b, system.device)}
+
+    # (a) a non-binding budget at f32: the first step's mean loss and
+    # averaged gradients against one process's on the same global batch
+    # and draws; the ranks' parameters after PARALLEL_STEPS steps
+    h = bench_hparams(capacity=24, samples_per_ray=24,
+                      compute_dtype="float32", table_dtype="float32")
+    dp = tt.NeRFSystem(h, tr, te, world=world, seed=0)
+    one = tt.NeRFSystem(h, tr, te, device=DEVICE, seed=0) if main else None
+    dp.maybe_update_grid()
+    aux, grads = dp.data_parallel_grads(staged(dp, batches[0]))
+    if main:
+        one.maybe_update_grid()
+        sb = staged(one, batches[0])
+        aux1, grads1 = one.loss_and_grads(sb, sb["noise"],
+                                          sb.get("sparsity_points"))
+        la, lb = float(aux["loss"]), float(aux1["loss"])
+        if not abs(la - lb) <= 1e-4 * abs(lb):
+            raise AssertionError(f"parallel (a): loss {la} vs {lb}")
+        out["a_loss"] = (la, lb)
+        out["a_grad_worst"] = _grads_close("parallel (a)", grads, grads1)
+        del sb, aux1, grads1
+    dp.apply_grads(aux, grads)
+    del aux, grads
+    for b in batches[1:]:
+        dp.training_step(b)
+    digests = [None] * PARALLEL_RANKS
+    dist.all_gather_object(digests, _param_digest(dp))
+    if len(set(digests)) != 1:
+        raise AssertionError(f"parallel (a): the ranks' parameters differ "
+                             f"after {PARALLEL_STEPS} steps: {digests}")
+    out["a_digest"] = digests[0][:16]
+    del dp, one
+    torch.cuda.empty_cache()
+
+    # (b) the bench's binding budget (48 / 24, bf16): losses against one
+    # process's; rank 0 records and checks its first step's kernels;
+    # the all-reduce timed, the later steps timed
+    h = bench_hparams()
+    dp = tt.NeRFSystem(h, tr, te, world=world, seed=0)
+    recs = record_kernels(dp.model_cfg, KERNELS) if main else {}
+    real_mean = tt.all_reduce_mean
+    reduce_ms = []
+
+    def timed_mean(w, trees):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real_mean(w, trees)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+    tt.all_reduce_mean = timed_mean
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i, b in enumerate(batches):
+            if i == 1:
+                for r in recs.values():
+                    r.restore()
+                clear_counts()
+            sb = stage(b, dp.device)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            aux = dp.training_step(sb)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(aux["loss"]))
+    finally:
+        tt.all_reduce_mean = real_mean
+        for r in recs.values():
+            r.restore()
+    launches = launch_counts()
+    out["b_launches_per_step"] = {k: launches[k] / (PARALLEL_STEPS - 1)
+                                  for k in KERNELS}
+    out["b_losses"] = losses
+    out["b_step_ms"] = step_ms
+    out["b_reduce_ms"] = reduce_ms
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if main:
+        for name, r in recs.items():
+            if PRIMARY[name] not in r.calls:
+                raise AssertionError(f"parallel: {name} "
+                                     f"[{PRIMARY[name]}] was not called")
+        with torch.no_grad():
+            out["checks"] = {name: {tag: CHECKS[name](a, f"parallel, {tag}")
+                                    for tag, (a, _) in r.calls.items()}
+                             for name, r in recs.items()}
+        del recs
+        one = tt.NeRFSystem(h, tr, te, device=DEVICE, seed=0)
+        ref = [float(one.training_step(stage(b, one.device))["loss"])
+               for b in batches]
+        out["b_ref_losses"] = ref
+        for i, (la, lb) in enumerate(zip(losses, ref)):
+            if not abs(la - lb) <= 5e-3 * abs(lb):
+                raise AssertionError(f"parallel (b): step {i} loss {la} vs "
+                                     f"{lb} (rtol 5e-3)")
+        del one
+    dist.barrier()
+    del dp
+    torch.cuda.empty_cache()
+
+    # the sharded test render at a non-binding budget against one
+    # process's view
+    h = bench_hparams(capacity=24, samples_per_ray=24,
+                      compute_dtype="float32", table_dtype="float32")
+    dp = tt.NeRFSystem(h, tr, te, world=world, seed=0)
+    set_sphere_grid(dp)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    view = dp.render_image(te.poses[0])
+    torch.cuda.synchronize()
+    out["render_ms"] = (time.perf_counter() - t) * 1e3
+    if main:
+        one = tt.NeRFSystem(h, tr, te, device=DEVICE, seed=0)
+        set_sphere_grid(one)
+        ref = one.render_image(te.poses[0])
+        if view["total_samples"] != ref["total_samples"]:
+            raise AssertionError(f"parallel render: {view['total_samples']} "
+                                 f"samples vs {ref['total_samples']}")
+        for k in ("rgb", "depth", "opacity"):
+            if not torch.allclose(view[k], ref[k], rtol=1e-4, atol=1e-5):
+                d = float((view[k] - ref[k]).abs().max())
+                raise AssertionError(f"parallel render: {k} differs by {d}")
+        out["render_err"] = float((view["rgb"] - ref["rgb"]).abs().max())
+        out["render_samples"] = int(view["total_samples"])
+        out["render_opacity"] = float(view["opacity"].max())
+        del one
+    del dp
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # the --distributed CLI over localhost TCP, validating round-robin
+    os.chdir(workdir)
+    clear_counts()
+    t = time.perf_counter()
+    metrics = train_cli.main([
+        "--config", _repo_file(CLI_CONFIG), "--steps_per_epoch",
+        str(PARALLEL_CLI_STEPS), "--distributed", "--coordinator_address",
+        f"localhost:{cli_port}", "--num_processes", str(PARALLEL_RANKS),
+        "--process_id", str(rank)], device=DEVICE)
+    out["cli_s"] = time.perf_counter() - t
+    out["cli_metrics"] = metrics
+    out["cli_launches"] = {k: v for k, v in launch_counts().items() if v}
+    dist.destroy_process_group()
+    queue.put(out)
+
+
+def phase_parallel():
+    """Data parallelism at bench.py's width with --num_gpus semantics:
+    PARALLEL_RANKS processes on the one card, joined over gloo (NCCL
+    refuses two ranks on one card), BATCH / PARALLEL_RANKS rays each of
+    the global batch: (a) f32 at a non-binding budget (capacity = samples
+    a ray = 24), the first step's mean loss to rtol 1e-4 of one process's
+    on the same global batch and draws and its averaged gradients to
+    1e-4 of each leaf's largest value, the ranks' parameters bitwise
+    equal after PARALLEL_STEPS steps; (b) the bench's binding budget
+    (48 / 24, bf16), each step's loss to rtol 5e-3 of one process's
+    (JAX's bound for the binding case), rank 0's first-step kernel
+    launches against their plain versions at phase "train"'s tolerances,
+    launches a step per rank; the sharded 256x256 view against one
+    process's at rtol 1e-4, atol 1e-5; then `train.main` with
+    --distributed over localhost TCP for PARALLEL_CLI_STEPS steps of
+    configs/synthetic_smoke.txt, validating round-robin. Prints the
+    global rays/s, step ms, all-reduce ms a step and peak memory per
+    rank. A rank that fails fails the phase."""
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    t = time.time()
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    with tempfile.TemporaryDirectory() as workdir:
+        mp.start_processes(_parallel_rank,
+                           args=(_free_port(), _free_port(), workdir, queue),
+                           nprocs=PARALLEL_RANKS, join=True,
+                           start_method="spawn")
+        outs = sorted((queue.get() for _ in range(PARALLEL_RANKS)),
+                      key=lambda o: o["rank"])
+    r0 = outs[0]
+    log(f"parallel: {PARALLEL_RANKS} ranks over {r0['backend']} on "
+        f"{[o['device'] for o in outs]}; NCCL across cards not measured "
+        f"(one card)")
+    log(f"parallel (a) f32, capacity 24 = samples a ray: step 1 loss "
+        f"{r0['a_loss'][0]:.8f} vs one process {r0['a_loss'][1]:.8f}; "
+        f"averaged gradients within {r0['a_grad_worst']:.3g} of each "
+        f"leaf's largest value; parameters after {PARALLEL_STEPS} steps "
+        f"bitwise equal on the ranks (sha256 {r0['a_digest']})")
+    log(f"parallel (b) bench 48 / 24 bf16: losses {r0['b_losses']} vs one "
+        f"process {r0['b_ref_losses']}")
+    for o in outs:
+        timed = o["b_step_ms"][1:]
+        step = float(np.mean(timed)) if timed else float("nan")
+        log(f"parallel (b) rank {o['rank']}: step ms {o['b_step_ms']} "
+            f"(steps 2-{PARALLEL_STEPS}: {step:.1f} ms, "
+            f"{BATCH / step * 1e3:,.0f} global rays/s), all-reduce ms "
+            f"{[round(v, 1) for v in o['b_reduce_ms']]}, peak "
+            f"{o['peak_gib']:.2f} GiB, launches a step "
+            f"{o['b_launches_per_step']}")
+        check_launched(o["b_launches_per_step"], f"parallel rank "
+                                                  f"{o['rank']}")
+    log(f"parallel render: 256x256 view split over the ranks, "
+        f"{r0['render_samples']} samples, max opacity "
+        f"{r0['render_opacity']:.4f}, rgb within {r0['render_err']:.3g} of "
+        f"one process's; {r0['render_ms']:.1f} ms")
+    m = [o["cli_metrics"] for o in outs]
+    if m[0] != m[1] or not all(np.isfinite(list(m[0].values()))):
+        raise AssertionError(f"parallel cli: the ranks' metrics {m}")
+    log(f"parallel cli: --distributed, {PARALLEL_CLI_STEPS} steps of "
+        f"{CLI_CONFIG}, validated round-robin: {m[0]} on both ranks; "
+        f"{r0['cli_s']:.1f} s; rank 0 launches {r0['cli_launches']}")
+    log(f"parallel: {time.time() - t:.1f} s")
+    return r0["checks"]
+
+
+# --------------------------------------------------------------- profile
+
+PROFILE_FIT_STEPS = 32
+
+
+def profile_fit(system):
+    """`fit` for PROFILE_FIT_STEPS steps with hparams.profile_dir set: the
+    Chrome trace must hold 10 "train_step" ranges (steps 20-29 after the
+    first) and name the K1, K2 and K3 kernels."""
+    import os
+    import tempfile
+    h = system.hparams
+    total = system.total_steps
+    with tempfile.TemporaryDirectory() as d:
+        h.profile_dir = d
+        system.total_steps = system.global_step + PROFILE_FIT_STEPS
+        t = time.time()
+        try:
+            system.fit(log_every=0)
+        finally:
+            system.total_steps = total
+            h.profile_dir = None
+        path = os.path.join(d, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+        # the host's ranges (a CUDA trace adds a gpu_user_annotation
+        # event of the same name for each)
+        spans = sum(e.get("name") == "train_step"
+                    and e.get("cat") == "user_annotation" for e in trace)
+        names = {e.get("name", "") for e in trace if e.get("cat") == "kernel"}
+    kernels = {k: sum(k in n for n in names) for k in (
+        "ray_reduce_fwd_kernel", "ray_reduce_bwd_kernel",
+        "brick_reduce_fwd_kernel", "brick_reduce_bwd_kernel",
+        "composite_fwd_kernel", "composite_bwd_kernel")}
+    log(f"train profile: fit of {PROFILE_FIT_STEPS} steps with profile_dir "
+        f"in {time.time() - t:.1f} s; {path} (deleted after), "
+        f"{size / 2 ** 20:.1f} MiB, {len(trace)} events, {spans} "
+        f"train_step ranges, kernel names {kernels}")
+    if spans != 10:
+        raise AssertionError(f"profile: {spans} train_step ranges, not 10")
+    missing = [k for k, n in kernels.items() if not n]
+    if missing:
+        raise AssertionError(f"profile: no {missing} in the trace")
+
+
 def kernel_rows(render_errs, train_checks, other_checks, launches, probes,
                 probe_launches):
     """The kernels line: each kernel's launches in the timed training
@@ -3960,6 +4402,7 @@ def main(argv):
     if "--reference-spread" in argv:
         reference_spread()
         return 0
+    phase_native()
     system, ds, recs, plan = phase_render(bench_hparams())
     render_errs = phase_kernels(recs, plan, system.model_cfg)
     del recs, plan
@@ -3969,6 +4412,7 @@ def main(argv):
     feature_checks = phase_features(train_stats)
     fused_checks, fused_launches = phase_fused(train_system, train_stats)
     phase_train_reference()
+    parallel_checks = phase_parallel()
     probes, probe_launches = phase_probes()
     phase_cli()
     quality_checks, _ = phase_quality()
@@ -3984,7 +4428,8 @@ def main(argv):
                             "composite") else {}),
                         **data_checks.get(k, {}),
                         **offline_checks.get(k, {}),
-                        **mega_checks.get(k, {})} for k in KERNELS}
+                        **mega_checks.get(k, {}),
+                        **parallel_checks.get(k, {})} for k in KERNELS}
     rows = kernel_rows(render_errs, train_checks, other_checks, launches,
                        probes, probe_launches)
     rows.append(pos_kernel_row(kitti_checks[POS_KERNEL[0]], *pos_launches))

@@ -1,6 +1,7 @@
 """Training system (counterpart of ingp_tpu/training/trainer.py): the
-hparams -> config mapping (:46-113), and `NeRFSystem` on one device --
-parameters, optimiser, occupancy grid, the training step (:233-406) with
+hparams -> config mapping (:46-113), and `NeRFSystem` on one device or
+over a data-parallel `World` -- parameters, optimiser, occupancy grid,
+the training step (:233-406) with
 the sparsity prior (:279-295), the model features (appearance
 embeddings, the transient mask, the random background, the skybox behind
 its warmup gate, the HDR unit-exposure anchor, pose refinement
@@ -24,11 +25,26 @@ through the sample positions; the march's t values are held fixed (see
 stream's caps come from the measured run counts of the training batches
 (`_maybe_grow_stream_caps`, :495-545), and ride the checkpoints. The
 loop writes the JAX loop's validation images (`_dump_val_images`,
-:836-861). The shard_map path and the native batch loader are not
-ported.
+:836-861) and draws its batches from the native sampler (`native/`,
+:726-737) unless told otherwise.
+
+Data parallelism (JAX's shard_map step, :231-398): with a `World` of n
+ranks (`parallel/mesh.py`) every rank runs the per-ray pipeline on its
+shard of the rays (R/n rays, an R/n-scaled sample budget, its own
+compaction plan and stream), with its slice of the ray noise drawn over
+the global batch and of the sparsity prior's points; loss, mse,
+s_per_ray, the loss terms and every gradient leaf are averaged over the
+ranks (stream_runs takes the maximum), and clip and Adam then run on
+every rank on the same averaged gradients, so the parameters stay
+replicated. After each grid refresh rank 0's grid is broadcast. With
+--num_gpus one global batch of batch_size rays is split n ways; with
+--distributed (`world.feeds_own_batch`) each rank feeds its own
+batch_size rays. The test render then splits each chunk over the ranks
+(--num_gpus) or `validate` deals the views round-robin (--distributed).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -46,11 +62,16 @@ from ..models.implicit_mask import mask_apply, mask_init
 from ..models.ngp import (NGPConfig, hash_layout, log_radiance_to_rgb,
                           ngp_init, ngp_sigma, ngp_sigma_cm,
                           params_from_numpy, params_to_numpy, tree_map)
-from ..models.rendering import MAX_SAMPLES, RenderConfig, render_rays
+from ..models.rendering import (MAX_SAMPLES, RenderConfig, render_rays,
+                                render_rays_test)
 from ..ops.march import build_block_table
 from ..ops.streambrick import stream_caps
+from ..parallel.distributed import all_gather_metrics, broadcast_int
+from ..parallel.mesh import (all_reduce_max, all_reduce_mean, barrier,
+                             broadcast_tree, gather_rows, shard_batch)
 from ..render.offline import render_chunks
-from ..utils.ckpt import AsyncCkptManager, load_ckpt, save_ckpt, slim_state
+from ..utils.ckpt import (AsyncCkptManager, load_ckpt, save_ckpt,
+                          slim_state, step_state_path)
 from ..utils.loggers import make_logger
 from .losses import LossConfig, compute_losses, total_loss
 from .metrics import mse, psnr, ssim
@@ -59,6 +80,7 @@ REAL_DATASETS = ("colmap", "nerfpp", "tnt", "kitti", "mega", "highbay")
 SPARSITY_POINTS = 16384     # uniform points of the sparsity prior
 VAL_DUMP_EVERY = 10000      # the JAX loop's validation image cadence
 EXT_LR = 1e-6               # the pose corrections' constant Adam rate
+PROFILE_STEPS = (20, 30)    # profile_dir's window after fit's first step
 
 
 def model_config_from_hparams(h) -> NGPConfig:
@@ -186,6 +208,29 @@ def _check_depth(loss_cfg, train_dataset):
             f"drop depth_mono")
 
 
+def _check_finite(what, tree):
+    """Raise FloatingPointError naming the first leaf of tree (a dict or
+    list of tensors) that holds a NaN or an infinity (debug_nans)."""
+    for path, t in tree_leaves(tree):
+        if not bool(torch.isfinite(t).all()):
+            name = "/".join(str(k) for k in (what,) + tuple(path))
+            raise FloatingPointError(f"debug_nans: non-finite value in "
+                                     f"{name}")
+
+
+@contextlib.contextmanager
+def _anomaly_as_fpe():
+    """autograd's anomaly mode, its NaN report re-raised as
+    FloatingPointError (which names the backward op)."""
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(f"debug_nans: {e}") from e
+
+
 def _host_array(x):
     """A C-contiguous numpy copy of an array leaf (numpy or CPU tensor)."""
     return np.array(np.asarray(x.detach() if torch.is_tensor(x) else x),
@@ -216,6 +261,13 @@ class NeRFSystem:
         (N_images, embed_a_len)[, "msk": mask_init tree][, "ext": {"dR",
         "dT"} (N_images, 3)]} (the JAX system's `params`, in its layouts)
         to start from; with optimize_ext and no "ext", zero corrections.
+      world: a data-parallel `parallel.mesh.World` of more than one rank
+        (default none: one device); `device` defaults to its device.
+
+    hparams.debug_nans runs each step's backward in autograd's anomaly
+    mode and checks the loss, every loss term and every gradient leaf:
+    the first NaN or infinity raises FloatingPointError naming the leaf
+    or the backward op (JAX's jax_debug_nans).
     """
 
     WARMUP_STEPS = 256
@@ -231,11 +283,20 @@ class NeRFSystem:
     DRAW_KEYS = ("noise", "sparsity_points", "bg_color")
 
     def __init__(self, hparams, train_dataset=None, test_dataset=None,
-                 device=None, seed=None, params=None):
+                 device=None, seed=None, params=None, world=None):
         _check_ported(hparams)
         if train_dataset is None:
             train_dataset, test_dataset = _datasets_from_hparams(hparams)
         self.hparams = hparams
+        self.world = world if world is not None and world.size > 1 else None
+        self.is_main = self.world is None or self.world.is_main
+        # ranks a test-render chunk is split over (--num_gpus semantics)
+        self.render_shards = 1 if (self.world is None
+                                   or self.world.feeds_own_batch) \
+            else self.world.size
+        self.debug_nans = bool(getattr(hparams, "debug_nans", False))
+        if device is None and world is not None:
+            device = world.device
         self.device = dev = resolve_device(device)
         self.model_cfg = model_config_from_hparams(hparams)
         self.render_cfg = render_config_from_hparams(hparams)
@@ -321,15 +382,27 @@ class NeRFSystem:
                 prng.fold_in(key, 7), (SPARSITY_POINTS, 3), -s, s)
         return out
 
+    def draws_for(self, n: int, step=None):
+        """The draws of this process's batch of n rays: `step_draws(n)`,
+        except under --distributed, where the noise is drawn over the
+        global n x world.size rays and this rank takes its slice (JAX
+        draws it over the global batch before the shard_map)."""
+        w = self.world
+        if w is None or not w.feeds_own_batch:
+            return self.step_draws(n, step)
+        out = self.step_draws(w.size * n, step)
+        out["noise"] = out["noise"][w.rank * n:(w.rank + 1) * n]
+        return out
+
     def loss_and_grads(self, batch, noise, sparsity_points=None,
                        bg_color=None):
         """(aux, grads) of one batch on the current grid: aux as
-        `train_step` returns it, grads a tree like params (zeros for
-        leaves the loss does not reach). With a sparsity prior
-        (lambda_sparsity > 0), its density is taken at sparsity_points
-        (N, 3), and with random_bg the background is bg_color (3,); each
-        where not given is this step's draw. The skybox's gate is open
-        from step WARMUP_STEPS on."""
+        `train_step` returns it plus "mse" (the psnr's), grads a tree
+        like params (zeros for leaves the loss does not reach). With a
+        sparsity prior (lambda_sparsity > 0), its density is taken at
+        sparsity_points (N, 3), and with random_bg the background is
+        bg_color (3,); each where not given is this step's draw. The
+        skybox's gate is open from step WARMUP_STEPS on."""
         h = self.hparams
         p = self.params
         b = {k: self._on_device(v) for k, v in batch.items()
@@ -387,15 +460,22 @@ class NeRFSystem:
             loss_d["unit_exposure"] = 0.5 * (
                 out - self._on_device(unit_rgb).float()) ** 2
         loss = total_loss(loss_d)
+        if self.debug_nans:
+            _check_finite("loss", {"total": loss, **loss_d})
         leaves = [t for _, t in tree_leaves(self.params)]
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with _anomaly_as_fpe() if self.debug_nans else \
+                contextlib.nullcontext():
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         by_id = {id(t): g for t, g in zip(leaves, gs)}
         grads = tree_map(lambda t: torch.zeros_like(t) if by_id[id(t)] is None
                          else by_id[id(t)], self.params)
+        if self.debug_nans:
+            _check_finite("grad", grads)
+        err = mse(results["rgb"].detach(), b["rgb"])
         aux = {
             "loss": loss.detach(),
-            "psnr": -10.0 * torch.log10(mse(results["rgb"].detach(),
-                                            b["rgb"])),
+            "mse": err,
+            "psnr": -10.0 * torch.log10(err),
             "s_per_ray": results["total_samples"] / rays_o.shape[0],
             "loss_terms": {k: v.detach().mean() for k, v in loss_d.items()},
         }
@@ -407,14 +487,70 @@ class NeRFSystem:
         """One optimisation step on the current grid (no grid refresh),
         with the ray jitter batch["noise"], the prior's points
         batch["sparsity_points"] and the background batch["bg_color"] or,
-        without them, this step's draws.
+        without them, this step's draws (`draws_for`). Over a world, the
+        batch is the global batch (--num_gpus) or this rank's own
+        (--distributed), and the step is `data_parallel_grads`'.
         Returns aux (loss, psnr, s_per_ray, loss_terms)."""
         if "noise" not in batch:
-            batch = {**self.stage_batch(self.step_draws(
+            batch = {**self.stage_batch(self.draws_for(
                 len(batch["pix_idxs"]))), **batch}
-        aux, grads = self.loss_and_grads(batch, batch["noise"],
-                                         batch.get("sparsity_points"),
-                                         batch.get("bg_color"))
+        if self.world is None:
+            aux, grads = self.loss_and_grads(batch, batch["noise"],
+                                             batch.get("sparsity_points"),
+                                             batch.get("bg_color"))
+        else:
+            aux, grads = self.data_parallel_grads(batch)
+        return self.apply_grads(aux, grads)
+
+    def shard_of(self, batch, rank):
+        """Rank `rank`'s shard of a staged batch and its draws: its rows of
+        the per-ray keys (--num_gpus; under --distributed the batch is
+        already this rank's) and, when SPARSITY_POINTS splits evenly over
+        the ranks, its slice of the prior's points (JAX trainer
+        :284-293: the mean over the ranks is then the mean over all
+        points)."""
+        w = self.world
+        local = dict(batch)
+        if not w.feeds_own_batch:
+            per_ray = {k: v for k, v in batch.items()
+                       if k in self.BATCH_KEYS or k == "noise"}
+            local.update(shard_batch(w, per_ray, rank))
+        pts = local.get("sparsity_points")
+        if pts is not None and SPARSITY_POINTS % w.size == 0:
+            per = SPARSITY_POINTS // w.size
+            local["sparsity_points"] = pts[rank * per:(rank + 1) * per]
+        return local
+
+    def data_parallel_grads(self, batch):
+        """(aux, grads) of the data-parallel step: each rank this process
+        runs takes `loss_and_grads` of its shard (`shard_of`), then loss,
+        mse, s_per_ray, the loss terms and the gradients are averaged over
+        every rank and, with run_stats, stream_runs takes the maximum,
+        (L,) -1 where this step measured none (JAX trainer :347-358)."""
+        parts, runs = [], []
+        for r in self.world.ranks:
+            local = self.shard_of(batch, r)
+            aux, grads = self.loss_and_grads(
+                local, local["noise"], local.get("sparsity_points"),
+                local.get("bg_color"))
+            aux.pop("psnr")
+            runs.append(aux.pop("stream_runs", None))
+            parts.append((aux, grads))
+        aux, grads = all_reduce_mean(self.world, parts)
+        if self.render_cfg.run_stats:
+            sentinel = torch.full((self.model_cfg.rgb_brick_cfg.n_levels,),
+                                  -1, dtype=torch.int32, device=self.device)
+            aux["stream_runs"] = all_reduce_max(
+                self.world, [sentinel if r is None else r for r in runs])
+        return aux, grads
+
+    def apply_grads(self, aux, grads):
+        """The update of a step from its (averaged) gradients: clip, Adam
+        at this step's rate, the step count and, on the adoption cadence,
+        the cap auto-calibration. aux's psnr comes from its (averaged)
+        mse, as JAX's step derives it (:389-391)."""
+        aux = dict(aux)
+        aux["psnr"] = -10.0 * torch.log10(aux.pop("mse"))
         gl = clip_by_global_norm([g for _, g in tree_leaves(grads)])
         for (_, p), g in zip(tree_leaves(self.params), gl):
             p.grad = g
@@ -488,6 +624,14 @@ class NeRFSystem:
             self.hparams.density_threshold * MAX_SAMPLES / math.sqrt(3),
             cfg.grid_size, cfg.cascades, cfg.scale, warmup,
             erode=self.hparams.dataset_name == "colmap")
+        if self.debug_nans:
+            _check_finite("grid", {"density_grid":
+                                   self.grid["density_grid"]})
+        if self.world is not None:
+            # every rank refreshed from the same draws; rank 0's grid is
+            # taken so that a last-bit difference between ranks cannot
+            # flip a cell of one rank's bitfield
+            broadcast_tree(self.world, self.grid)
 
     def training_step(self, batch):
         """Grid refresh on its cadence, then one optimisation step."""
@@ -589,31 +733,89 @@ class NeRFSystem:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def render_image(self, pose, chunk_size=None, embedding=None):
-        """Whole-image test render through `render_chunks`, its chunk
-        capped so that chunk * samples_per_ray <= 1.5M network samples. With
-        embed_a every ray takes the appearance code `embedding`
-        ((1, embed_a_len) or (embed_a_len,); default: image 0's)."""
+        """Whole-image test render, its chunk capped so that chunk *
+        samples_per_ray <= 1.5M network samples a rank. With embed_a every
+        ray takes the appearance code `embedding` ((1, embed_a_len) or
+        (embed_a_len,); default: image 0's). Over the ranks of a
+        --num_gpus world (render_shards > 1) each chunk is split over
+        them (`_render_sharded`): every rank must call it."""
+        n_dev = self.render_shards
         chunk = chunk_size or self.hparams.chunk_size
         spr = max(self.render_cfg_test.samples_per_ray, 1)
-        chunk = min(chunk, max(1_500_000 // spr, 4096))
+        chunk = min(chunk, max(n_dev * 1_500_000 // spr, 4096))
         pose = torch.as_tensor(np.asarray(pose), device=self.device)
         rays_o, rays_d = get_rays(self.directions, pose)
         if self.hparams.embed_a and embedding is None:
             embedding = self.params["embedding_a"][0:1]
+        emb = embedding if self.hparams.embed_a else None
+        if n_dev > 1:
+            return self._render_sharded(rays_o, rays_d, chunk, emb)
         return render_chunks(
             self.model_cfg, self.render_cfg_test, self.params["model"],
-            self.grid["bitfield"], rays_o, rays_d, chunk,
-            embedding_a=embedding if self.hparams.embed_a else None,
+            self.grid["bitfield"], rays_o, rays_d, chunk, embedding_a=emb,
             block_table=self.grid["block_table"])
 
+    def _render_sharded(self, rays_o, rays_d, chunk, embedding):
+        """The test render with each chunk split over the world's ranks
+        (JAX trainer :584-658, `_sharded_test_render` :547-582): the chunk
+        is a multiple of n; a tail chunk pads to the chunk, a lone chunk to
+        the next multiple of n, by repeating its last ray; rank r renders
+        rows [r m, (r+1) m) of the padded chunk at its own sample budget
+        (m rays), the rows are gathered in rank order and total_samples
+        summed over the ranks."""
+        w, n_dev = self.world, self.render_shards
+        chunk = max(chunk // n_dev, 1) * n_dev
+        n = rays_o.shape[0]
+        emb_full = None
+        if embedding is not None:
+            emb_full = torch.as_tensor(embedding, device=self.device
+                                       ).reshape(1, -1).float().expand(n, -1)
+        outs, total = [], 0
+        for i in range(0, n, chunk):
+            sl = slice(i, min(i + chunk, n))
+            parts = [rays_o[sl], rays_d[sl]] + (
+                [emb_full[sl]] if emb_full is not None else [])
+            blk = chunk if (i > 0 or n > chunk) else \
+                -(-parts[0].shape[0] // n_dev) * n_dev
+            pad = blk - parts[0].shape[0]
+            if pad:
+                parts = [torch.cat([p, p[-1:].expand(pad, -1)])
+                         for p in parts]
+            m = blk // n_dev
+            shards = []
+            for r in w.ranks:
+                rs = [p[r * m:(r + 1) * m].contiguous() for p in parts]
+                shards.append(render_rays_test(
+                    self.model_cfg, self.render_cfg_test,
+                    self.params["model"], self.grid["bitfield"], rs[0],
+                    rs[1], embedding_a=rs[2] if len(rs) > 2 else None,
+                    block_table=self.grid["block_table"]))
+            res = {k: gather_rows(w, [s[k] for s in shards])
+                   for k in shards[0] if k != "total_samples"}
+            total += int(gather_rows(w, [
+                torch.as_tensor(s["total_samples"], device=self.device
+                                ).reshape(1) for s in shards]).sum())
+            if pad:
+                res = {k: v[:-pad] for k, v in res.items()}
+            outs.append(res)
+        merged = {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+        merged["total_samples"] = total
+        return merged
+
     def validate(self, max_images=None):
-        """Mean PSNR and SSIM of the test split's views."""
+        """Mean PSNR and SSIM of the test split's views. Under
+        --distributed the views go round-robin over the ranks, each
+        rendering whole views, and the per-view metrics are gathered
+        (NaN-padded to a common length; JAX trainer :660-706); every rank
+        returns the same means."""
         w, h = self.test_dataset.img_wh
         n = len(self.test_dataset.poses)
         if max_images:
             n = min(n, max_images)
+        pc, pid = (self.world.size, self.world.rank) if (
+            self.world is not None and self.world.feeds_own_batch) else (1, 0)
         psnrs, ssims = [], []
-        for i in range(n):
+        for i in range(pid, n, pc):
             item = self.test_dataset.test_item(i)
             res = self.render_image(item["pose"])
             pred = torch.clamp(res["rgb"], 0, 1).reshape(h, w, 3)
@@ -621,6 +823,12 @@ class NeRFSystem:
                                  ).reshape(h, w, 3)
             psnrs.append(float(psnr(pred, gt)))
             ssims.append(float(ssim(pred, gt)))
+        if pc > 1:
+            pad = [float("nan")] * (-(-n // pc) - len(psnrs))
+            psnrs = [v for v in all_gather_metrics(psnrs + pad)
+                     if np.isfinite(v)]
+            ssims = [v for v in all_gather_metrics(ssims + pad)
+                     if np.isfinite(v)]
         return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
     def _dump_val_images(self, ckpt_dir, step):
@@ -672,91 +880,186 @@ class NeRFSystem:
     def fit(self, log_every=100, ckpt_dir=None, rng=None, on_step=None,
             use_native_loader=None):
         """The training loop from global_step to the schedule's end
-        (JAX trainer :709-834): batches from the train dataset's numpy
-        sampler (seeded from hparams.seed unless rng is given), each
-        staged while the step before it runs; a log line every
-        log_every steps; with ckpt_dir, a metrics logger there, an
-        epoch checkpoint under ckpt_dir/steps (and a resume from its
-        latest step when the system starts at step 0), and the final
-        `last` and `last_slim` checkpoints. on_step(step, aux) is
-        called after every step.
-
-        With ckpt_dir, every VAL_DUMP_EVERY steps after step 0 the
+        (JAX trainer :709-834): each batch staged while the step before it
+        runs; a log line every log_every steps; with ckpt_dir, a metrics
+        logger there, an epoch checkpoint under ckpt_dir/steps (and a
+        resume from its latest step when the system starts at step 0,
+        unless hparams.no_resume), and the final `last` and `last_slim`
+        checkpoints; every VAL_DUMP_EVERY steps after step 0 the
         validation images of the test split's first view go to
-        ckpt_dir/val (`_dump_val_images`).
+        ckpt_dir/val (`_dump_val_images`). on_step(step, aux) is called
+        after every step.
 
-        Raises NotImplementedError, before any step, for what the port
-        does not have: the native loader (use_native_loader=True) and
-        hparams.profile_dir."""
+        The batches (JAX trainer :726-737, :776-777): with
+        use_native_loader None (the default) from the native sampler
+        (`native.NativeBatchSampler`, seeded with hparams.seed, so the
+        port draws JAX's batches), or, where its constructor refuses the
+        dataset's layout, from the dataset's numpy `sample_batch` with a
+        line saying so; True: the native sampler or raise; False: numpy,
+        from rng or a generator seeded with hparams.seed ([seed, rank]
+        under --distributed). rng is ignored while the native sampler
+        draws. A failed build of the sampler's library raises
+        RuntimeError (JAX falls back to numpy).
+
+        Over a world: log lines, the logger and the validation images on
+        rank 0; epoch checkpoints written by rank 0, the resume step
+        broadcast from it and loaded by every rank; `last` and
+        `last_slim` written by rank 0 after a barrier.
+
+        With hparams.profile_dir, steps first+20 to first+29 run under
+        torch.profiler (CPU and CUDA activities), each in a
+        record_function("train_step") range, and the Chrome trace goes
+        to profile_dir/trace[_rank<r>].json (JAX's jax.profiler window,
+        :774, :790-793)."""
         h = self.hparams
-        if use_native_loader:
-            raise NotImplementedError(
-                "the native batch loader is not ported yet (ROADMAP.md "
-                "Queue 1 item 4)")
-        if getattr(h, "profile_dir", None):
-            raise NotImplementedError("profile_dir is not ported yet")
-        rng = rng or np.random.default_rng(h.seed)
-        total_steps = self.total_steps
+        seed = getattr(h, "seed", 0)
+        w = self.world
+        if rng is None:
+            rng = np.random.default_rng(
+                [seed, w.rank] if w is not None and w.feeds_own_batch
+                else seed)
+        native = self.native_sampler(use_native_loader)
         logger = ckpt_mgr = None
         try:
             if ckpt_dir:
                 os.makedirs(ckpt_dir, exist_ok=True)
-                ckpt_mgr = AsyncCkptManager(os.path.join(ckpt_dir, "steps"))
-                latest = ckpt_mgr.latest_step()
+                steps_dir = os.path.join(ckpt_dir, "steps")
+                latest = None
+                if self.is_main:
+                    ckpt_mgr = AsyncCkptManager(steps_dir)
+                    latest = ckpt_mgr.latest_step()
+                    logger = make_logger(getattr(h, "logger", "jsonl"),
+                                         ckpt_dir,
+                                         getattr(h, "exp_name", "exp"))
+                if w is not None:
+                    latest = broadcast_int(latest)
                 if (latest is not None and self.global_step == 0
                         and not getattr(h, "no_resume", False)):
-                    self.load_state(ckpt_mgr.restore(latest))
-                    print(f"resumed from {ckpt_dir}/steps @ step "
-                          f"{self.global_step}", flush=True)
-                logger = make_logger(getattr(h, "logger", "jsonl"),
-                                     ckpt_dir, getattr(h, "exp_name", "exp"))
-            self._run(total_steps, rng, log_every, logger, ckpt_mgr, on_step,
-                      ckpt_dir)
+                    self.load_state(load_ckpt(step_state_path(steps_dir,
+                                                              latest)))
+                    if self.is_main:
+                        print(f"resumed from {ckpt_dir}/steps @ step "
+                              f"{self.global_step}", flush=True)
+            self._run(self.total_steps, native, rng, log_every, logger,
+                      ckpt_mgr, on_step, ckpt_dir)
         finally:
+            if native is not None:
+                native.close()
             if logger:
                 logger.close()
             if ckpt_mgr:
                 ckpt_mgr.close()
         if ckpt_dir:
-            self.save(os.path.join(ckpt_dir, "last"))
-            save_ckpt(os.path.join(ckpt_dir, "last_slim"),
-                      slim_state(self.state()))
+            if w is not None:
+                barrier(w)
+            if self.is_main:
+                self.save(os.path.join(ckpt_dir, "last"))
+                save_ckpt(os.path.join(ckpt_dir, "last_slim"),
+                          slim_state(self.state()))
         return self
 
-    def _run(self, total_steps, rng, log_every, logger, ckpt_mgr, on_step,
-             ckpt_dir):
+    def native_sampler(self, use_native_loader=None):
+        """The native sampler that `fit` draws from (seeded with
+        hparams.seed on every rank, as JAX seeds it), or None for numpy:
+        use_native_loader None takes it wherever its constructor accepts
+        the train dataset's layout (else a line says why not), True
+        raises where it does not, False never takes it. The caller
+        closes it."""
+        if use_native_loader is False:
+            return None
+        from ..native import NativeBatchSampler
+        try:
+            return NativeBatchSampler(
+                self.train_dataset, self.train_dataset.batch_size,
+                seed=getattr(self.hparams, "seed", 0),
+                strategy=self.train_dataset.ray_sampling_strategy)
+        except (ValueError, AttributeError) as e:
+            if use_native_loader:
+                raise
+            if self.is_main:
+                print(f"native loader unavailable ({e}); numpy sampler",
+                      flush=True)
+            return None
+
+    def _run(self, total_steps, native, rng, log_every, logger, ckpt_mgr,
+             on_step, ckpt_dir):
         h = self.hparams
         t0 = time.time()
         rays_done = 0
+        first = self.global_step
+        profile_dir = getattr(h, "profile_dir", None)
+        prof = None
 
         def batch_of(step):
-            b = self.train_dataset.sample_batch(rng)
-            return self.stage_batch({**self.step_draws(
+            b = native.next_batch() if native is not None \
+                else self.train_dataset.sample_batch(rng)
+            return self.stage_batch({**self.draws_for(
                 len(b["pix_idxs"]), step), **b})
 
-        staged = batch_of(self.global_step)
-        for step in range(self.global_step, total_steps):
-            aux = self.training_step(staged)
-            if step + 1 < total_steps:
-                staged = batch_of(step + 1)
-            rays_done += h.batch_size
-            if on_step is not None:
-                on_step(step, aux)
-            if log_every and step % log_every == 0:
-                rays_s = rays_done / max(time.time() - t0, 1e-9)
-                print(f"step {step:6d} loss {float(aux['loss']):.5f} "
-                      f"psnr {float(aux['psnr']):.2f} "
-                      f"s/ray {float(aux['s_per_ray']):.1f} "
-                      f"rays/s {rays_s:,.0f}", flush=True)
-                if logger:
-                    logger.log_metrics(step, {
-                        "loss": float(aux["loss"]),
-                        "train/psnr": float(aux["psnr"]),
-                        "train/s_per_ray": float(aux["s_per_ray"]),
-                        "train/rays_per_s": rays_s,
-                        "lr": self.lr_at(step),
-                    })
-            if ckpt_dir and step > 0 and step % VAL_DUMP_EVERY == 0:
-                self._dump_val_images(ckpt_dir, step)
-            if ckpt_mgr and (step + 1) % h.steps_per_epoch == 0:
-                ckpt_mgr.save(step + 1, self.state())
+        staged = batch_of(first)
+        try:
+            for step in range(first, total_steps):
+                if profile_dir and step == first + PROFILE_STEPS[0]:
+                    prof = self._start_profile()
+                if prof is not None and step == first + PROFILE_STEPS[1]:
+                    self._stop_profile(prof, profile_dir)
+                    prof = None
+                with torch.profiler.record_function("train_step") \
+                        if prof is not None else contextlib.nullcontext():
+                    aux = self.training_step(staged)
+                if step + 1 < total_steps:
+                    staged = batch_of(step + 1)
+                rays_done += h.batch_size
+                if on_step is not None:
+                    on_step(step, aux)
+                if log_every and step % log_every == 0 and self.is_main:
+                    rays_s = rays_done / max(time.time() - t0, 1e-9)
+                    print(f"step {step:6d} loss {float(aux['loss']):.5f} "
+                          f"psnr {float(aux['psnr']):.2f} "
+                          f"s/ray {float(aux['s_per_ray']):.1f} "
+                          f"rays/s {rays_s:,.0f}", flush=True)
+                    if logger:
+                        logger.log_metrics(step, {
+                            "loss": float(aux["loss"]),
+                            "train/psnr": float(aux["psnr"]),
+                            "train/s_per_ray": float(aux["s_per_ray"]),
+                            "train/rays_per_s": rays_s,
+                            "lr": self.lr_at(step),
+                        })
+                if ckpt_dir and step > 0 and step % VAL_DUMP_EVERY == 0:
+                    if self.is_main:
+                        self._dump_val_images(ckpt_dir, step)
+                    elif self.render_shards > 1:
+                        # rank 0's dump renders its view over every rank
+                        self.render_image(
+                            self.test_dataset.test_item(0)["pose"])
+                if ckpt_mgr and (step + 1) % h.steps_per_epoch == 0:
+                    ckpt_mgr.save(step + 1, self.state())
+        finally:
+            if prof is not None:
+                self._stop_profile(prof, profile_dir)
+
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+            # Kineto tears CUPTI down at the window's end only when asked:
+            # left subscribed, it slows every later host-bound step of the
+            # process (by ~14-17% on the bench step on an H100, PERF.md)
+            os.environ.setdefault("TEARDOWN_CUPTI", "1")
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir):
+        """End the profile and write its Chrome trace into profile_dir."""
+        prof.__exit__(None, None, None)
+        os.makedirs(profile_dir, exist_ok=True)
+        name = "trace.json" if self.world is None else \
+            f"trace_rank{self.world.rank}.json"
+        path = os.path.join(profile_dir, name)
+        prof.export_chrome_trace(path)
+        if self.is_main:
+            print(f"profile: steps {PROFILE_STEPS[0]}-"
+                  f"{PROFILE_STEPS[1] - 1} after the first -> {path}",
+                  flush=True)

@@ -69,6 +69,11 @@ def load_ckpt(path):
                       weights_only=True)
 
 
+def step_state_path(root, step: int) -> str:
+    """The state file of `AsyncCkptManager(root)`'s step `step`."""
+    return os.path.join(os.path.abspath(root), str(int(step)), _STATE_FILE)
+
+
 def slim_state(state, keep_embedding=True, keep_msk=True, keep_ext=False):
     """The weights, step and adopted stream caps of a state, without
     optimiser and grid."""
@@ -145,7 +150,7 @@ class AsyncCkptManager:
             step = self.latest_step()
         if step is None:
             return None
-        return load_ckpt(os.path.join(self.root, str(step), _STATE_FILE))
+        return load_ckpt(step_state_path(self.root, step))
 
     def wait(self) -> None:
         pending, self._pending = self._pending, None

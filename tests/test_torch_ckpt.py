@@ -6,8 +6,10 @@ state holds in the JAX package's feature-major layout); a JAX system's
 state() through numpy, loaded into the port, gives the same next step;
 AsyncCkptManager commits each step atomically, keeps max_to_keep steps
 and finds the latest; fit resumes from its steps/ directory, writes the
-validation images every VAL_DUMP_EVERY steps and refuses what the port
-does not have."""
+validation images every VAL_DUMP_EVERY steps, draws from the native
+sampler when asked (and raises where it cannot) and writes a profile
+into profile_dir."""
+import json
 import os
 from types import SimpleNamespace
 
@@ -211,8 +213,16 @@ def test_fit_checkpoints_resume_and_refusals(tmp_path, monkeypatch):
     c.fit(ckpt_dir=str(tmp_path / "fresh"),
           on_step=lambda s, aux: steps.append(s))
     assert steps == [0, 1]
-    with pytest.raises(NotImplementedError, match="native"):
-        _system(h).fit(use_native_loader=True)
+    # use_native_loader=True is the default's sampler (the native one);
+    # a dataset whose layout it cannot read raises instead of falling
+    # back to numpy
+    one = _system(_hparams(num_epochs=1)).fit(use_native_loader=True)
+    two = _system(_hparams(num_epochs=1)).fit()
+    _equal_trees(one.params_to_numpy(), two.params_to_numpy())
+    bad = _system(_hparams(num_epochs=1))
+    bad.train_dataset.rays = bad.train_dataset.rays[:, :10]
+    with pytest.raises(ValueError, match="rays"):
+        bad.fit(use_native_loader=True)
     # the validation images at every VAL_DUMP_EVERY steps after step 0
     monkeypatch.setattr(tt, "VAL_DUMP_EVERY", 2)
     te = SyntheticDataset(split="test", img_size=8, n_test=1)
@@ -223,5 +233,11 @@ def test_fit_checkpoints_resume_and_refusals(tmp_path, monkeypatch):
                      for k in ("depth", "normal", "normal_raw", "rgb")]
     for name in dumps:
         assert read_png(tmp_path / "long" / "val" / name).shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        _system(_hparams(profile_dir=str(tmp_path))).fit()
+    # profile_dir: a Chrome trace of the window's steps, one
+    # "train_step" range each
+    monkeypatch.setattr(tt, "PROFILE_STEPS", (1, 3))
+    _system(_hparams(profile_dir=str(tmp_path / "prof"))).fit()
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())[
+        "traceEvents"]
+    assert sum(e.get("name") == "train_step"
+               and e.get("cat") == "user_annotation" for e in events) == 2

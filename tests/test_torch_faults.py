@@ -4,9 +4,11 @@ it: `seed` seeds the port's generator (an explicit `seed=` still wins),
 corrections and their optimiser group, `stream_autocal`,
 `stream_head_frac` and the `fused` encoder reach the configs and a step
 runs with each, and `eval_lpips`, which the port has not ported, raises
-NotImplementedError instead of being dropped; so do the CLI flags that
-`ingp_tpu_torch.train.main` cannot honour yet, and a dataset's per-ray
-exposure (JAX's own step fails on it). The model
+NotImplementedError instead of being dropped, and so does a dataset's
+per-ray exposure (JAX's own step fails on it); the CLI flags that
+`ingp_tpu_torch.train.main` once refused (--distributed,
+--coordinator_address, --num_gpus 2 (two spawned gloo ranks),
+--debug_nans) run. The model
 features `embed_a`, `embed_msk`, `random_bg`, `use_skybox` and
 `use_exposure` are honoured: each changes the parameters or the step."""
 from types import SimpleNamespace
@@ -118,25 +120,31 @@ def test_hparam_honoured_or_refused(hparam, tmp_path):
     assert np.isfinite(float(aux["loss"]))
 
 
-# flags of the CLI that `train.main` refuses at its start, with what they
-# would do in the JAX entry point
+# flags of the CLI that `train.main` once refused; each now runs: a
+# world of one process where no group of more ranks is named (as in the
+# JAX entry point), two spawned ranks for --num_gpus 2
 CLI_REFUSED = {
-    "distributed": (["--no_save_test", "--distributed"], "distributed"),
-    "coordinator_address": (["--no_save_test", "--coordinator_address",
-                             "localhost:1"], "coordinator_address"),
-    "num_gpus": (["--no_save_test", "--num_gpus", "2"], "num_gpus"),
-    "debug_nans": (["--no_save_test", "--debug_nans"], "debug_nans"),
+    "distributed": ["--distributed"],
+    "coordinator_address": ["--coordinator_address", "file://{tmp}/store",
+                            "--num_processes", "1", "--process_id", "0"],
+    "num_gpus": ["--num_gpus", "2"],
+    "debug_nans": ["--debug_nans"],
 }
+TINY_CLI = ["--dataset_name", "synthetic", "--num_epochs", "1",
+            "--normal_epochs", "0", "--steps_per_epoch", "2",
+            "--batch_size", "128", "--downsample", "0.125", "--capacity",
+            "8", "--samples_per_ray", "8", "--march_iters", "64",
+            "--grid_size", "16", "--density_L", "2", "--rgb_L", "2",
+            "--density_log2T", "10", "--rgb_log2T", "10", "--no_save_test"]
 
 
 @pytest.mark.parametrize("flag", list(CLI_REFUSED))
 def test_cli_flag_refused(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    argv, match = CLI_REFUSED[flag]
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(["--dataset_name", "synthetic"] + argv,
-                       device="cpu")
-    assert not (tmp_path / "ckpts").exists()
+    argv = [a.format(tmp=tmp_path) for a in CLI_REFUSED[flag]]
+    m = train_cli.main(TINY_CLI + argv, device="cpu")
+    assert np.isfinite(m["psnr"]) and 0 < m["ssim"] <= 1
+    assert (tmp_path / "ckpts" / "synthetic" / "exp" / "last").is_file()
     with pytest.raises(ValueError, match="ckpt_load"):
         train_cli.main(["--val_only"], device="cpu")
 

@@ -207,7 +207,7 @@ def test_autocal_adopts_in_training_and_round_trips(tmp_path):
     assert system.render_cfg.run_stats and not system.render_cfg_test.run_stats
     seen = []
     system.fit(log_every=0, rng=np.random.default_rng(0),
-               on_step=lambda s, aux: seen.append(
+               use_native_loader=False, on_step=lambda s, aux: seen.append(
                    (s, aux.get("stream_runs"))), ckpt_dir=str(tmp_path))
     measured = [(s, r) for s, r in seen if r is not None]
     assert [s for s, _ in measured] == [15]
