@@ -129,11 +129,18 @@ Phases, each line flushed and stamped with elapsed seconds:
    sparsity prior), in a temporary working directory, with the launch
    counts set to 0 before it: the step time, the losses of the first and
    last 50 steps (finite and falling), the test PSNR (at most 1 dB under
-   the JAX CLI's on the same config, JAX_CLI_PSNR) and SSIM; the
+   the JAX CLI's on the same config, JAX_CLI_PSNR) and SSIM, and with
+   --eval_lpips on LPIPS weights drawn from a seed a finite LPIPS; the
    checkpoints `last` and `last_slim` must exist, and `--ckpt_load last
-   --val_only` must give the same PSNR and SSIM to 1e-6; then the hash
+   --val_only` must give the same metrics to 1e-6; then the hash
    encode, its jacobian and its table gradient on the card against the
    CPU, within 1e-5 of the largest value;
+11b. utility: LPIPS and the utility/ tools on the card against the CPU
+   (`phase_utility`): LPIPS with TF32 off, on process-wide, and on with
+   LPIPS's own pin bypassed (which must miss the 1e-5 the others hold),
+   plane_ransac, a Poisson blend, the ocean's synthesis, the line
+   segment detector's g++ build and the up vector of a rendered facade,
+   and a Motion-JPEG AVI round trip;
 12. quality: the port's quality gate (`ingp_tpu_torch.quality_synthetic`
    at its defaults: 600 steps of 8192 rays over 100 views at 256 px,
    a stream of two chunks, the sparsity prior), with the launch counts
@@ -209,7 +216,13 @@ Phases, each line flushed and stamped with elapsed seconds:
 With --reference-spread, only the device and build phases run, then
 the small card-vs-CPU step of phases "train reference" and "features"
 (gate open, and closed) at batch seeds 5-10, unchecked, one line of its
-worst gradient leaves each; it exits 0 without the result lines.
+worst gradient leaves each, and each step once more on the CPU in
+float64 on the f32 step's samples and cells (`float64_replay`), with
+the trilinear weights exact and with the f32 step's own (F64_MODES):
+lines of whether both sides fed the encoder the same samples and
+fractions, and of the card's and the f32 CPU step's distance to each
+float64 step, over each leaf and on the entries where the two differ;
+it exits 0 without the result lines.
 
 With --profile, a torch.profiler pass over one more render and one more
 training step prints the CUDA time per op and of each launch of the
@@ -222,6 +235,7 @@ check fails.
 from __future__ import annotations
 
 import collections
+import contextlib
 import inspect
 import json
 import subprocess
@@ -2036,7 +2050,7 @@ def phase_train_reference():
 
 
 def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
-                   check=True):
+                   check=True, f64=False):
     """One small training step's loss and gradients at global step
     `step` on the card (kernels) and on the CPU (plain versions), from
     the same parameters, batch (drawn from batch_seed), noise, grid and
@@ -2046,7 +2060,12 @@ def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
     gradient leaf to 1e-4 of its largest |value|, norm_net's to 1e-3 (it
     reaches the loss only through the Ref-NeRF term of the normalised
     density gradient, which amplifies rounding where that gradient is
-    short). Returns {leaf: error as a fraction of its largest value}."""
+    short). Returns {leaf: error as a fraction of its largest value}; with
+    f64 also the card's and the CPU's inputs to the encoder compared
+    (`shared_inputs`) and, for each of F64_MODES, ({leaf: the card's
+    distance}, {leaf: the CPU's distance}, {leaf: both sides' distance
+    on the entries where they differ}) to the same step in float64
+    (`float64_grads`), each side's on its own samples and cells."""
     import numpy as np
     from ingp_tpu_torch.data.synthetic import SyntheticDataset
     from ingp_tpu_torch.training.trainer import NeRFSystem
@@ -2064,15 +2083,42 @@ def reference_step(what, h, step=0, unit_exposure_rgb=None, batch_seed=5,
     rng = np.random.default_rng(batch_seed)
     batch = tr.sample_batch(rng, 512)
     noise = rng.random(512, dtype=np.float32)
-    return hold_step(what, gpu, cpu, batch, noise, check)[0]
+    if not f64:
+        return hold_step(what, gpu, cpu, batch, noise, check)[0]
+    worst, gb, ga = hold_step(what, gpu, cpu, batch, noise, check,
+                              card_grads=True)
+    tapes = {}
+    for side, system in (("card", gpu), ("cpu", cpu)):
+        tapes[side] = {"march": [], "coords": []}
+        with float64_replay(tapes[side], record=True):
+            system.loss_and_grads(batch, noise)
+    shared = shared_inputs(tapes["card"], tapes["cpu"])
+    # the CPU's f32 step on the card's own samples
+    tapes["card"] = {k: [host(x) for x in v] for k, v in tapes["card"].items()}
+    on_card = {"march": [], "coords": [],
+               "samples": list(tapes["card"]["march"])}
+    with float64_replay(on_card, record=True):
+        _, gc = cpu.loss_and_grads(batch, noise)
+    shared["card_vs_cpu_on_card_samples"] = leaf_distances(ga, gc)
+    # each side's float64 steps replay its own samples and cells
+    out = {}
+    for mode in F64_MODES:
+        g64 = {side: float64_grads(
+            h, tr, gpu.params_to_numpy(), step, batch, noise,
+            {k: list(tapes[side][k]) for k in ("march", "coords")},
+            own_frac=mode == "f32 frac") for side in ("card", "cpu")}
+        out[mode] = (leaf_distances(ga, g64["card"]),
+                     leaf_distances(gb, g64["cpu"]),
+                     split_distances(ga, gb, g64["card"], g64["cpu"]))
+    return worst, shared, out
 
 
-def hold_step(what, gpu, cpu, batch, noise, check=True):
+def hold_step(what, gpu, cpu, batch, noise, check=True, card_grads=False):
     """One step's loss and gradients of a card system and a CPU system
     on the same batch and noise: with check, the loss to rtol 1e-5 and
     each gradient leaf to 1e-4 of its largest |value|, norm_net's to 1e-3
     (see `reference_step`). Returns ({leaf: error as a fraction of its
-    largest value}, the CPU's gradients)."""
+    largest value}, the CPU's gradients[, the card's with card_grads])."""
     from ingp_tpu_torch.training.trainer import tree_leaves
     aux_a, ga = gpu.loss_and_grads(batch, noise)
     aux_b, gb = cpu.loss_and_grads(batch, noise)
@@ -2095,27 +2141,251 @@ def hold_step(what, gpu, cpu, batch, noise, check=True):
         f"agree to "
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
         f" of their largest values")
-    return worst, gb
+    return (worst, gb, ga) if card_grads else (worst, gb)
+
+
+# the float64 steps of --reference-spread: "exact" takes each brick's
+# trilinear weights from the float64 position less the recorded corner,
+# "f32 frac" takes the f32 step's own weights (cast), so that the f32
+# rounding of the positions and fractions, which the card's torch ops
+# and the CPU's may round apart, is no longer a distance of either side
+F64_MODES = ("exact", "f32 frac")
+
+
+@contextlib.contextmanager
+def float64_replay(tape, record, own_frac=False):
+    """With record, the step runs as it is (on the samples of
+    `tape["samples"]` in place of its march's, where given) and `tape`
+    keeps the march's samples and `brick_coords`' cells (rows, local
+    cell, integer grid corner, f32 fraction, the positions and the
+    config). Without, a CPU
+    step replays them in float64: torch's float32 (and `Tensor.float`)
+    stand for float64 and each brick's trilinear weights come from the
+    float64 position less the recorded corner (with own_frac, the
+    recorded f32 fraction), so that the float64 step keeps the f32
+    step's samples and cells and differs from it only in rounding."""
+    import torch
+    from ingp_tpu_torch.models import rendering
+    from ingp_tpu_torch.ops import brickgrid, gather, streambrick
+    march0, coords0 = rendering._march, brickgrid.brick_coords
+    saved = (torch.float32, torch.float, torch.Tensor.float,
+             dict(gather._DTYPES), torch.get_default_dtype())
+
+    def march(*a, **k):
+        if record:
+            tape["march"].append(tape["samples"].pop(0) if tape.get(
+                "samples") is not None else march0(*a, **k))
+            return tape["march"][-1]
+        return {n: v.double() if v.is_floating_point() else v
+                for n, v in tape["march"].pop(0).items()}
+
+    def coords(cfg, xT):
+        if record:
+            rows, local, frac = coords0(cfg, xT)
+            sc = torch.tensor(cfg.scales, device=xT.device)[None, :, None]
+            tape["coords"].append((rows, local,
+                                   xT[:, None] * sc + 0.5 - frac, frac,
+                                   xT, cfg))
+            return rows, local, frac
+        rows, local, corner, frac, _, _ = tape["coords"].pop(0)
+        sc = torch.tensor(cfg.scales, dtype=saved[0]).double()
+        pos = xT.double()[:, None] * sc[None, :, None]
+        if own_frac:
+            # the recorded value, with the position's derivative kept
+            return rows, local, frac.double() + (pos - pos.detach())
+        return rows, local, pos + 0.5 - corner.double()
+
+    rendering._march = march
+    brickgrid.brick_coords = streambrick.brick_coords = coords
+    if not record:
+        torch.float32 = torch.float = torch.float64
+        torch.Tensor.float = torch.Tensor.double
+        gather._DTYPES["float32"] = torch.float64
+        torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        rendering._march = march0
+        brickgrid.brick_coords = streambrick.brick_coords = coords0
+        torch.float32, torch.float, torch.Tensor.float = saved[:3]
+        gather._DTYPES.clear()
+        gather._DTYPES.update(saved[3])
+        torch.set_default_dtype(saved[4])
+
+
+def float64_grads(h, tr, params, step, batch, noise, tape, own_frac=False):
+    """The gradients of `reference_step`'s step on the CPU in float64,
+    replaying the recorded f32 step's samples and cells (with own_frac
+    its trilinear weights too)."""
+    import numpy as np
+    from ingp_tpu_torch.training.trainer import NeRFSystem, tree_map
+    sys64 = NeRFSystem(h, tr, device="cpu", seed=3, params=params)
+    set_sphere_grid(sys64)
+    sys64.global_step = step
+    sys64.params = tree_map(lambda t: t.detach().double().requires_grad_(),
+                            sys64.params)
+    b64 = {k: v.astype(np.float64) if getattr(v, "dtype", None) ==
+           np.float32 else v for k, v in batch.items()}
+    with float64_replay(tape, record=False, own_frac=own_frac):
+        _, g64 = sys64.loss_and_grads(b64, noise.astype(np.float64))
+    if tape["march"] or tape["coords"]:
+        raise AssertionError("float64 step: the replay left samples unused")
+    return g64
+
+
+def host(x):
+    """A recorded tape entry (a march dict or a `brick_coords` tuple)
+    with its tensors on the CPU."""
+    import torch
+    if isinstance(x, dict):
+        return {k: v.cpu() for k, v in x.items()}
+    return tuple(v.cpu() if torch.is_tensor(v) else v for v in x)
+
+
+def shared_inputs(card, cpu) -> dict:
+    """How far the card's f32 step and the CPU's feed the encoder the
+    same inputs: the march's samples (float fields' max abs difference,
+    integer fields' mismatches); for each of the CPU's recorded
+    `brick_coords` calls, `brick_coords` of the same positions on the
+    card (rows' mismatches, the fraction's max abs difference); each
+    side's own positions and cells, call by call (`own_*`: the
+    positions' max abs difference and how many differ, the fractions'
+    max abs difference, rows' mismatches); the number of `brick_coords`
+    calls each side made."""
+    from ingp_tpu_torch.ops import brickgrid
+    out = {"march_float": 0.0, "march_int": 0, "rows": 0, "frac": 0.0,
+           "own_xT": 0.0, "own_xT_differ": 0, "own_frac": 0.0,
+           "own_rows": 0,
+           "coords_calls": [len(card["coords"]), len(cpu["coords"])]}
+    for a, b in zip(card["coords"], cpu["coords"]):
+        if a[4].shape != b[4].shape:
+            out["own_shapes_differ"] = True
+            continue
+        d = (a[4].cpu() - b[4]).abs()
+        out["own_xT"] = max(out["own_xT"], float(d.max()) if d.numel()
+                            else 0.0)
+        out["own_xT_differ"] += int((d > 0).sum())
+        out["own_frac"] = max(out["own_frac"], float(
+            (a[3].cpu() - b[3]).abs().max()) if b[3].numel() else 0.0)
+        out["own_rows"] += int((a[0].cpu() != b[0]).sum())
+    if len(card["march"]) != len(cpu["march"]):
+        out["march_calls"] = [len(card["march"]), len(cpu["march"])]
+    for a, b in zip(card["march"], cpu["march"]):
+        for k, v in b.items():
+            w = a[k].cpu()
+            if w.shape != v.shape:
+                out[f"march_shape_{k}"] = [list(w.shape), list(v.shape)]
+            elif v.is_floating_point():
+                out["march_float"] = max(out["march_float"], float(
+                    (w - v).abs().max()) if v.numel() else 0.0)
+            else:
+                out["march_int"] += int((w != v).sum())
+    for rows, _, _, frac, xT, cfg in cpu["coords"]:
+        r, _, f = brickgrid.brick_coords(cfg, xT.to(DEVICE))
+        out["rows"] += int((r.cpu() != rows).sum())
+        out["frac"] = max(out["frac"], float((f.cpu() - frac).abs().max())
+                          if frac.numel() else 0.0)
+    return out
+
+
+def split_distances(ga, gb, g64a, g64b, floor=1e-5) -> dict:
+    """{leaf: (entries where the card's gradients ga and the CPU's gb
+    differ by more than floor of gb's largest value, ga's max distance
+    to g64a and gb's to g64b on them, as fractions of the float64
+    step's largest value)}."""
+    from ingp_tpu_torch.training.trainer import tree_leaves
+    out = {}
+    for (path, a), (_, b), (_, c), (_, d) in zip(
+            tree_leaves(ga), tree_leaves(gb), tree_leaves(g64a),
+            tree_leaves(g64b)):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        scale, sc, sd = (float(t.abs().max()) for t in (b, c, d))
+        if not (scale and sc and sd):
+            continue
+        m = (a - b).abs() > floor * scale
+        n = int(m.sum())
+        name = ".".join(str(x) for x in path)
+        out[name] = (n, float((a - c)[m].abs().max()) / sc if n else 0.0,
+                     float((b - d)[m].abs().max()) / sd if n else 0.0)
+    return out
+
+
+def leaf_distances(grads, g64) -> dict:
+    """{leaf: max |g - g64| as a fraction of g64's largest value}."""
+    from ingp_tpu_torch.training.trainer import tree_leaves
+    out = {}
+    for (path, a), (_, b) in zip(tree_leaves(grads), tree_leaves(g64)):
+        scale = float(b.abs().max())
+        if scale:
+            out[".".join(str(x) for x in path)] = float(
+                (a.detach().cpu().double() - b).abs().max()) / scale
+    return out
 
 
 def reference_spread(seeds=range(5, 11)):
     """`reference_step` of phase "train reference" and of phase
     "features" (gate open, and closed with the random background behind
-    the rays) at each batch seed, unchecked: one line per step with its
-    four worst leaves (`--reference-spread`; the checks use seed 5)."""
+    the rays) at each batch seed, unchecked, each with its float64 steps
+    (`float64_grads`, F64_MODES): per step the four worst leaves card
+    against CPU, whether both sides fed the encoder the same samples and
+    fractions (`shared_inputs`) and the card against the CPU's f32 step
+    on the card's samples, then per mode the card's and the f32 CPU
+    step's distance to float64 (each on its own samples and cells) on
+    the leaves the check bounds at 1e-4,
+    and both sides' distance on the entries where they differ by more
+    than 1e-5 of the largest value (`split_distances`;
+    `--reference-spread`; the checks use seed 5). Ends with each side's
+    worst over all steps per mode."""
+    def fmt(d):
+        return json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+
     small = dict(SMALL, batch_size=512, samples_per_ray=16)
     feat = bench_hparams(**small, **FEATURES, use_exposure=True)
+    worst_side = {(m, s): {} for m in F64_MODES
+                  for s in ("card", "cpu", "card where they differ",
+                            "cpu where they differ")}
     for what, h, step in (
             ("train", bench_hparams(**small), 0),
             ("features, gate open", feat, 256),
             ("features, gate closed", feat, 0)):
         for seed in seeds:
-            worst = reference_step(f"spread {what}, batch seed {seed}", h,
-                                   step, 0.5 if h is feat else None, seed,
-                                   check=False)
+            tag = f"{what}, batch seed {seed}"
+            worst, shared, dist = reference_step(
+                f"spread {tag}", h, step, 0.5 if h is feat else None, seed,
+                check=False, f64=True)
             top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
-            log(f"spread [{what}, batch seed {seed}]: worst leaves "
-                f"{json.dumps({k: float(f'{v:.3g}') for k, v in top})}")
+            log(f"spread [{tag}]: worst leaves {fmt(dict(top))}")
+            on_card = shared.pop("card_vs_cpu_on_card_samples")
+            top = sorted(on_card.items(), key=lambda kv: -kv[1])[:4]
+            log(f"spread inputs [{tag}]: card against CPU "
+                f"{json.dumps(shared)}; the card against the CPU's step on "
+                f"the card's samples {fmt(dict(top))}")
+            for mode, (card, cpu, split) in dist.items():
+                sides = {"card": card, "cpu": cpu,
+                         "card where they differ":
+                             {k: v[1] for k, v in split.items()},
+                         "cpu where they differ":
+                             {k: v[2] for k, v in split.items()}}
+                for side, d in sides.items():
+                    tab = {k: v for k, v in d.items() if "norm_net" not in k}
+                    acc = worst_side[(mode, side)]
+                    for k, v in tab.items():
+                        acc[k] = max(acc.get(k, 0), v)
+                    if side in ("card", "cpu"):
+                        top = sorted(tab.items(), key=lambda kv: -kv[1])[:4]
+                        log(f"spread float64 {mode} [{tag}]: {side} to "
+                            f"float64 {fmt(dict(top))}")
+                differ = {k: v for k, v in split.items()
+                          if "norm_net" not in k and v[0]}
+                log(f"spread float64 {mode} [{tag}]: where card and CPU "
+                    f"differ by > 1e-5 (entries, card, cpu to float64): "
+                    + json.dumps({k: [n, float(f"{c:.3g}"),
+                                      float(f"{u:.3g}")]
+                                  for k, (n, c, u) in differ.items()}))
+    for (mode, side), d in worst_side.items():
+        top = sorted(d.items(), key=lambda kv: -kv[1])[:6]
+        log(f"spread float64 {mode}, worst over all steps: {side} "
+            f"{fmt(dict(top))}")
 
 
 # the JAX CLI's test PSNR on configs/synthetic_smoke.txt (`python -m
@@ -2213,21 +2483,28 @@ def phase_cli():
     own 500 steps of 2048 rays (the hash encoder, f32, the sparsity
     prior), in a temporary working directory: the step time, the
     losses (finite and falling), the test PSNR (at most CLI_PSNR_SLACK
-    dB under JAX_CLI_PSNR) and SSIM, the checkpoints `last` and
-    `last_slim`, a `--ckpt_load last --val_only` run that must give the
-    same metrics to 1e-6, and the hash encode on the card against the
-    CPU. Returns the launch counts of the training run."""
+    dB under JAX_CLI_PSNR) and SSIM, with --eval_lpips on LPIPS weights
+    drawn from a seed (`random_lpips_params`, written to the temporary
+    directory) a finite `lpips`, the checkpoints `last` and `last_slim`,
+    a `--ckpt_load last --val_only` run that must give the same metrics
+    to 1e-6, and the hash encode on the card against the CPU. Returns the
+    launch counts of the training run."""
     import os
     import tempfile
     import torch
     from ingp_tpu_torch import train as train_cli
+    from ingp_tpu_torch.core import prng
+    from ingp_tpu_torch.training import lpips
     from ingp_tpu_torch.training.config import get_opts
     from ingp_tpu_torch.training.trainer import model_config_from_hparams
     from ingp_tpu_torch.utils.ckpt import load_ckpt
-    argv = ["--config", _repo_file(CLI_CONFIG)]
-    h = get_opts(argv)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="ingp_cli_") as tmp:
+        weights = os.path.join(tmp, "lpips_random.npz")
+        lpips.save_lpips(weights, lpips.random_lpips_params(prng.prng_key(0)))
+        argv = ["--config", _repo_file(CLI_CONFIG), "--eval_lpips",
+                "--lpips_weights", weights]
+        h = get_opts(argv)
         os.chdir(tmp)
         try:
             t = time.time()
@@ -2256,13 +2533,17 @@ def phase_cli():
                    "the cli run")
     check_falling(steps.losses, 50, "cli")
     log(f"cli: test/psnr {metrics['psnr']:.4f} test/ssim "
-        f"{metrics['ssim']:.4f} (JAX's CLI on the CPU: psnr {JAX_CLI_PSNR}); "
+        f"{metrics['ssim']:.4f} test/lpips {metrics.get('lpips', 'absent')} "
+        f"(random LPIPS weights; JAX's CLI on the CPU: psnr {JAX_CLI_PSNR}); "
         f"--ckpt_load last --val_only: psnr {again['psnr']:.4f} ssim "
-        f"{again['ssim']:.4f}")
+        f"{again['ssim']:.4f} lpips {again.get('lpips', 'absent')}")
+    import math
+    if not math.isfinite(metrics.get("lpips", math.nan)):
+        raise AssertionError(f"cli: --eval_lpips gave {metrics}")
     if not metrics["psnr"] >= JAX_CLI_PSNR - CLI_PSNR_SLACK:
         raise AssertionError(f"cli: test psnr {metrics['psnr']} more than "
                              f"{CLI_PSNR_SLACK} dB under {JAX_CLI_PSNR}")
-    for k in ("psnr", "ssim"):
+    for k in ("psnr", "ssim", "lpips"):
         if not abs(again[k] - metrics[k]) <= 1e-6:
             raise AssertionError(f"cli: the reloaded checkpoint gives {k} "
                                  f"{again[k]}, the run {metrics[k]}")
@@ -3057,7 +3338,7 @@ def mega_small_jpegs():
     from ingp_tpu_torch.data import image_io
     from ingp_tpu_torch.utils import mega_fixture
     t = time.time()
-    image_io.build_helper("jpeg")
+    image_io.build_helper("jpeg", force=True)
     build_s = time.time() - t
     pose = mega_fixture.scene_poses(3)[1]
     n = 0
@@ -3927,6 +4208,212 @@ def phase_offline(brick, lego_argv, dump_png, tnt_span, traj_frames):
 NATIVE_BATCHES = 100
 
 
+UTILITY_LPIPS = (8, 256)          # image pairs, side
+UTILITY_PLANE_POINTS = 1_000_000
+UTILITY_BLEND = 256               # blended region side (target 320)
+UTILITY_OCEAN = (512, 120, 8)     # resolution, frames, frames on the CPU
+UTILITY_SCENE = (480, 640)        # the vanishing-point scene
+UTILITY_VP = (347.0, -1400.0)     # its verticals' vanishing point
+UTILITY_VIDEO = (30, 256)         # AVI frames, side
+
+
+def vp_scene(h, w, vp, seed=0, n=24):
+    """An RGB facade of dark quads on a light wall whose sides run to vp
+    (a numpy half-plane fill, so that the check needs no cv2)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w, 3), 200, np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w] + 0.5
+    for _ in range(n):
+        x0, y0 = rng.uniform(10, w - 80), rng.uniform(h * 0.4, h - 5)
+        top, wd = rng.uniform(5, y0 - 40), rng.uniform(20, 70)
+        t = (y0 - top) / (y0 - vp[1])
+        quad = [(x0, y0), (x0 + wd, y0),
+                (x0 + wd + (vp[0] - x0 - wd) * t, top),
+                (x0 + (vp[0] - x0) * t, top)]
+        inside = np.ones((h, w), bool)
+        for (ax, ay), (bx, by) in zip(quad, quad[1:] + quad[:1]):
+            inside &= (bx - ax) * (yy - ay) - (by - ay) * (xx - ax) <= 0
+        img[inside] = rng.integers(0, 120, 3)
+    return img
+
+
+def phase_utility():
+    """The port's utility tools and LPIPS on the card, each against the
+    same call on the CPU: LPIPS of UTILITY_LPIPS image pairs (rtol 1e-5),
+    again with TF32 switched on process-wide (`lpips` pins it off for its
+    convolutions), and once with the pin bypassed, which must miss 1e-5;
+    plane_ransac on 1 M seeded points (inlier masks
+    equal); a 256 x 256 Poisson blend (1e-9); the ocean's 120 frames at
+    512 against the CPU's first 8 (1e-4 of the largest value); the line
+    segment detector's g++ build and estimate_up_vector on a rendered
+    facade with a known vertical vanishing point (within 1 degree); a
+    Motion-JPEG AVI round trip (above 35 dB)."""
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from ingp_tpu_torch.core import prng
+    from ingp_tpu_torch.training import lpips
+    from ingp_tpu_torch.utility import (fit_plane, ocean_wave, poisson_blend,
+                                        vanishing_point, video)
+    t_phase = time.time()
+
+    def timed(fn, dev):
+        """fn(dev) and its ms; on the card its second call (the first
+        builds cuFFT plans and cuDNN's choices)."""
+        if dev == DEVICE:
+            fn(dev)
+            torch.cuda.synchronize()
+        t = time.time()
+        out = fn(dev)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        return out, (time.time() - t) * 1e3
+
+    # LPIPS
+    n, side = UTILITY_LPIPS
+    rng = np.random.default_rng(0)
+    a = rng.random((n, side, side, 3), dtype=np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+    params = {d: lpips.random_lpips_params(prng.prng_key(0), device=d)
+              for d in (DEVICE, "cpu")}
+    want, cpu_ms = timed(lambda d: lpips.lpips(params[d], a, b), "cpu")
+    pin = lpips._no_tf32
+    # TF32 off and on process-wide, then on with lpips' pin bypassed: the
+    # negative control, which must miss the bound the pin holds
+    for tf32, pinned in ((False, True), (True, True), (True, False)):
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        if not pinned:
+            lpips._no_tf32 = contextlib.nullcontext
+        try:
+            got, ms = timed(lambda d: lpips.lpips(params[d], a, b), DEVICE)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+            lpips._no_tf32 = pin
+        rel = float(((got.cpu() - want).abs() / want.abs()).max())
+        how = ("on process-wide" if pinned else
+               "on, the pin bypassed") if tf32 else "off process-wide"
+        log(f"utility lpips: {n} pairs of {side}x{side}, TF32 {how}: "
+            f"{ms:.2f} ms (cpu {cpu_ms:.2f} ms), rel err {rel:.3g} (bound "
+            f"1e-5; values {float(want.min()):.5f}-"
+            f"{float(want.max()):.5f})")
+        if pinned and not rel <= 1e-5:
+            raise AssertionError(f"utility lpips: card vs cpu {rel} > 1e-5 "
+                                 f"with TF32 {how}")
+        if not pinned and not rel > 1e-5:
+            raise AssertionError(f"utility lpips: TF32 with the pin "
+                                 f"bypassed is within 1e-5 ({rel}), so the "
+                                 f"check cannot see the pin")
+
+    # plane fit
+    rng = np.random.default_rng(1)
+    m = UTILITY_PLANE_POINTS
+    pts = rng.uniform(-1, 1, (m, 3))
+    on = rng.random(m) < 0.6
+    pts[on, 2] = 0.3 * pts[on, 0] - 0.2 * pts[on, 1] + 0.4 \
+        + rng.normal(0, 0.002, on.sum())
+    fits = {}
+    for d in ("cpu", DEVICE):
+        fits[d], ms = timed(lambda dv: fit_plane.plane_ransac(
+            pts, n_iters=200, threshold=0.01, seed=0, device=dv), d)
+        log(f"utility plane_ransac [{d}]: {m} points, 200 hypotheses: "
+            f"{ms:.2f} ms, {int(fits[d][1].sum())} inliers, normal "
+            f"{np.round(fits[d][0].normal, 6).tolist()}")
+    if not np.array_equal(fits["cpu"][1], fits[DEVICE][1]):
+        raise AssertionError("utility plane_ransac: the card's inlier mask "
+                             "differs from the CPU's")
+    dc = float(np.abs(fits["cpu"][0].center - fits[DEVICE][0].center).max())
+    if not dc <= 1e-9:
+        raise AssertionError(f"utility plane_ransac: centers differ by {dc}")
+
+    # Poisson blend
+    rng = np.random.default_rng(2)
+    k = UTILITY_BLEND
+    src = rng.uniform(0, 255, (k + 20, k + 20, 3))
+    tar = rng.uniform(0, 255, (k + 64, k + 64, 3))
+    blends = {}
+    for d in ("cpu", DEVICE):
+        blends[d], ms = timed(lambda dv: poisson_blend.poisson_blending(
+            src, (10, 10 + k, 5, 5 + k), tar, (30, 40), device=dv), d)
+        log(f"utility poisson_blending [{d}]: {k}x{k} region: {ms:.2f} ms")
+    err = float(np.abs(blends["cpu"] - blends[DEVICE]).max())
+    log(f"utility poisson_blending: card vs cpu max abs err {err:.3g}")
+    if not err <= 1e-9:
+        raise AssertionError(f"utility poisson_blending: {err} > 1e-9")
+
+    # ocean waves
+    res, frames, on_cpu = UTILITY_OCEAN
+    times = np.arange(frames, dtype=np.float32) / np.float32(15.0)
+
+    def ocean(dv, nt):
+        spec = ocean_wave.init_spectrum((-5.0, 5.0), res, 500.0, dv)
+        h0, h0s, ph = ocean_wave.seed_field(prng.prng_key(0), spec)
+        return ocean_wave.synthesize(h0, h0s, ph, times[:nt], 1e4, res,
+                                     500.0)
+    disp, ms = timed(lambda dv: ocean(dv, frames), DEVICE)
+    ref, cpu_ms = timed(lambda dv: ocean(dv, on_cpu), "cpu")
+    err = float((disp[:on_cpu].cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"utility ocean: {frames} frames at {res}x{res}: {ms:.2f} ms "
+        f"(cpu {cpu_ms:.2f} ms for {on_cpu}); first {on_cpu} frames: max "
+        f"abs err {err:.3g} of largest {scale:.4g}")
+    if not (torch.isfinite(disp).all() and err <= 1e-4 * scale):
+        raise AssertionError(f"utility ocean: {err} > 1e-4 x {scale}")
+
+    # the line segment detector and the up vector
+    t = time.time()
+    vanishing_point.build_helper(force=True)
+    log(f"utility lsd: g++ build {time.time() - t:.2f} s")
+    h, w = UTILITY_SCENE
+    img = vp_scene(h, w, UTILITY_VP)
+    K = np.array([[500.0, 0, w / 2], [0, 500.0, h / 2], [0, 0, 1]])
+    t = time.time()
+    segs = vanishing_point.detect_line_segments(
+        vanishing_point.rgb_to_gray(img))
+    lsd_ms = (time.time() - t) * 1e3
+    up, ms = timed(lambda dv: vanishing_point.estimate_up_vector(
+        img, K, device=dv), DEVICE)
+    ray = np.linalg.inv(K) @ np.array([*UTILITY_VP, 1.0])
+    ray = ray / np.linalg.norm(ray) * (-1 if ray[1] > 0 else 1)
+    ang = float(np.degrees(np.arccos(np.clip(up @ ray, -1, 1)))) \
+        if up is not None else math.inf
+    log(f"utility vanishing point: {w}x{h} scene, {len(segs)} segments in "
+        f"{lsd_ms:.2f} ms, estimate_up_vector {ms:.2f} ms: up "
+        f"{None if up is None else np.round(up, 5).tolist()}, "
+        f"{ang:.4f} degrees from the true vertical")
+    if not ang <= 1.0:
+        raise AssertionError(f"utility vanishing point: {ang} degrees")
+
+    # video
+    nf, side = UTILITY_VIDEO
+    yy, xx = np.mgrid[0:side, 0:side]
+    clip = [np.stack([127 + 100 * np.sin(xx / 19 + i / 5),
+                      127 + 100 * np.cos(yy / 23 - i / 7),
+                      127 + 60 * np.sin((xx + yy) / 31)], -1).astype(np.uint8)
+            for i in range(nf)]
+    with tempfile.TemporaryDirectory(prefix="ingp_video_") as tmp:
+        path = os.path.join(tmp, "clip.avi")
+        t = time.time()
+        video.write_avi(path, clip, fps=30)
+        back = video.read_avi(path)
+        ms = (time.time() - t) * 1e3
+        size = os.path.getsize(path)
+    psnr = min(10 * math.log10(255.0 ** 2 / float(np.mean(
+        (f.astype(np.float64) - g) ** 2))) for f, g in zip(clip, back))
+    log(f"utility video: {nf} frames of {side}x{side} to a Motion-JPEG AVI "
+        f"({size} bytes) and back in {ms:.2f} ms, worst frame {psnr:.2f} dB")
+    if not (len(back) == nf and psnr > 35.0):
+        raise AssertionError(f"utility video: {len(back)} frames, "
+                             f"{psnr} dB")
+    log(f"utility: phase {time.time() - t_phase:.1f} s")
+
+
 def phase_native():
     """The native batch sampler (`ingp_tpu_torch.native`) that `fit` draws
     from by default: its library built by g++ here, NATIVE_BATCHES
@@ -4415,6 +4902,7 @@ def main(argv):
     parallel_checks = phase_parallel()
     probes, probe_launches = phase_probes()
     phase_cli()
+    phase_utility()
     quality_checks, _ = phase_quality()
     data_checks, offline_checks = phase_data()
     kitti_checks, pos_launches = phase_kitti()

@@ -49,17 +49,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
 import os
-import shutil
 import struct
-import subprocess
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+from ..native.build import build_shared
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -68,7 +67,6 @@ PGM_SIGNATURE = b"P5"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-GXX_TIMEOUT_S = 120
 # helper -> (source, the library's name stem)
 HELPERS = {"png": (CSRC / "png_unfilter.cpp", "libingp_png"),
            "jpeg": (CSRC / "jpeg_decode.cpp", "libingp_jpeg")}
@@ -81,43 +79,19 @@ SIGNATURES = {"png": ("ingp_png_unfilter", [_ptr, _ptr, _i64, _i64, _i64]),
 
 # -- the C++ helpers ----------------------------------------------------------
 
-def helper_path(name: str = "png") -> Path:
-    """The helper's library, named by a hash of its source."""
+def build_helper(name: str = "png", force: bool = False) -> Path:
+    """The helper's library (csrc/png_unfilter.cpp or
+    csrc/jpeg_decode.cpp), compiled by g++ into data/_build/ first when
+    it is missing; raise RuntimeError when g++ is missing or fails."""
     src, stem = HELPERS[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{stem}-{digest}.so"
-
-
-def build_helper(name: str = "png") -> Path:
-    """Compile the helper's source (csrc/png_unfilter.cpp or
-    csrc/jpeg_decode.cpp) with g++ into helper_path(name); raise
-    RuntimeError when g++ is missing or fails."""
-    src = HELPERS[name][0]
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError(f"g++ not found: the {name.upper()} reader's "
-                           f"helper (data/csrc/{src.name}) needs it")
-    out = helper_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [gxx, "-O3", "-shared", "-fPIC", "-o", str(tmp), str(src)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True,
-                       timeout=GXX_TIMEOUT_S)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"g++ failed (exit {e.returncode}) on "
-                           f"{src}:\n{e.stderr}") from e
-    os.replace(tmp, out)
-    return out
+    return build_shared(src, BUILD_DIR, stem,
+                        f"the {name.upper()} reader's helper", force=force)
 
 
 @functools.lru_cache(maxsize=None)
 def load_helper(name: str = "png") -> ctypes.CDLL:
     """The helper's library, built first if its source has none."""
-    path = helper_path(name)
-    if not path.exists():
-        build_helper(name)
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(build_helper(name)))
     symbol, argtypes = SIGNATURES[name]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes

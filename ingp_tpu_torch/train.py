@@ -88,7 +88,8 @@ def _spawn(argv, device, n):
 
 def main(argv=None, device=None):
     """Train and validate as the flags say; returns the test metrics
-    {"psnr", "ssim"}. device: where the system lives (default CUDA)."""
+    {"psnr", "ssim"} and with --eval_lpips "lpips". device: where the
+    system lives (default CUDA)."""
     hparams = parse_args(argv)
     if hparams.val_only and not hparams.ckpt_load:
         raise ValueError("you need to provide --ckpt_load when --val_only")
@@ -110,8 +111,10 @@ def main(argv=None, device=None):
         system.fit(ckpt_dir=ckpt_dir)
     metrics = system.validate()
     if system.is_main:
+        lp = f"  test/lpips {metrics['lpips']:.4f}" if "lpips" in metrics \
+            else ""
         print(f"test/psnr {metrics['psnr']:.3f}  test/ssim "
-              f"{metrics['ssim']:.4f}", flush=True)
+              f"{metrics['ssim']:.4f}{lp}", flush=True)
         if not hparams.no_save_test and not hparams.val_only:
             render_for_test(hparams, system=system)
     return metrics

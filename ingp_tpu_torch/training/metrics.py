@@ -1,7 +1,7 @@
 """Image metrics (counterpart of ingp_tpu/training/metrics.py): MSE,
-PSNR and SSIM (Wang et al., gaussian window 11, sigma 1.5, k1 0.01,
-k2 0.03, valid filtering). LPIPS is not ported: its pretrained weights
-are not in the repository."""
+PSNR, SSIM (Wang et al., gaussian window 11, sigma 1.5, k1 0.01, k2
+0.03, valid filtering) and LPIPS (AlexNet, training/lpips.py; it needs
+an exported weights file, which the CLI asks for with --eval_lpips)."""
 from __future__ import annotations
 
 import numpy as np
@@ -45,3 +45,22 @@ def ssim(img0, img1, data_range=1.0, kernel_size=11, sigma=1.5, k1=0.01,
     num = (2 * mu0 * mu1 + c1) * (2 * s01 + c2)
     den = (mu0 ** 2 + mu1 ** 2 + c1) * (s00 + s11 + c2)
     return (num / den).mean().to(torch.float32)
+
+
+def lpips(img0, img1, weights_path=None, params=None):
+    """LPIPS perceptual metric (AlexNet variant, training/lpips.py) of
+    (..., H, W, 3) images in [0, 1], from `params` or else the weights
+    file `weights_path` (loaded on the images' device when they are
+    tensors, else on the card). Raises with guidance when given neither."""
+    from .lpips import load_lpips, lpips as lpips_fn
+    if params is None:
+        if not weights_path:
+            raise RuntimeError(
+                "LPIPS needs pretrained weights which cannot be "
+                "downloaded in a zero-egress environment. Export them "
+                "once with `python -m ingp_tpu_torch.utils.export_lpips "
+                "lpips_alex.npz ALEXNET.pth ALEX_LINS.pth` and pass "
+                "--lpips_weights lpips_alex.npz.")
+        params = load_lpips(weights_path, img0.device if torch.is_tensor(
+            img0) else None)
+    return lpips_fn(params, img0, img1)

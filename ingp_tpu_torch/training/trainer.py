@@ -74,6 +74,7 @@ from ..utils.ckpt import (AsyncCkptManager, load_ckpt, save_ckpt,
                           slim_state, step_state_path)
 from ..utils.loggers import make_logger
 from .losses import LossConfig, compute_losses, total_loss
+from .lpips import load_lpips, lpips
 from .metrics import mse, psnr, ssim
 
 REAL_DATASETS = ("colmap", "nerfpp", "tnt", "kitti", "mega", "highbay")
@@ -171,14 +172,6 @@ def tree_leaves(tree, prefix=()):
         return [x for i, v in enumerate(tree) for x in
                 tree_leaves(v, prefix + (i,))]
     return [(prefix, tree)]
-
-
-def _check_ported(h):
-    """Raise on training features the port does not have yet: LPIPS (its
-    weights are absent), which would otherwise be dropped without a
-    word."""
-    if getattr(h, "eval_lpips", None):
-        raise NotImplementedError("not ported yet: ['eval_lpips']")
 
 
 def _datasets_from_hparams(h):
@@ -284,7 +277,6 @@ class NeRFSystem:
 
     def __init__(self, hparams, train_dataset=None, test_dataset=None,
                  device=None, seed=None, params=None, world=None):
-        _check_ported(hparams)
         if train_dataset is None:
             train_dataset, test_dataset = _datasets_from_hparams(hparams)
         self.hparams = hparams
@@ -803,33 +795,40 @@ class NeRFSystem:
         return merged
 
     def validate(self, max_images=None):
-        """Mean PSNR and SSIM of the test split's views. Under
+        """Mean PSNR and SSIM of the test split's views, and with
+        eval_lpips their LPIPS from the lpips_weights file. Under
         --distributed the views go round-robin over the ranks, each
         rendering whole views, and the per-view metrics are gathered
         (NaN-padded to a common length; JAX trainer :660-706); every rank
         returns the same means."""
         w, h = self.test_dataset.img_wh
+        lpips_params = None
+        if getattr(self.hparams, "eval_lpips", False):
+            lpips_params = load_lpips(self.hparams.lpips_weights,
+                                      self.device)
         n = len(self.test_dataset.poses)
         if max_images:
             n = min(n, max_images)
         pc, pid = (self.world.size, self.world.rank) if (
             self.world is not None and self.world.feeds_own_batch) else (1, 0)
-        psnrs, ssims = [], []
+        metrics = {"psnr": [], "ssim": []}
+        if lpips_params is not None:
+            metrics["lpips"] = []
         for i in range(pid, n, pc):
             item = self.test_dataset.test_item(i)
             res = self.render_image(item["pose"])
             pred = torch.clamp(res["rgb"], 0, 1).reshape(h, w, 3)
             gt = torch.as_tensor(item["rgb"], device=self.device
                                  ).reshape(h, w, 3)
-            psnrs.append(float(psnr(pred, gt)))
-            ssims.append(float(ssim(pred, gt)))
+            metrics["psnr"].append(float(psnr(pred, gt)))
+            metrics["ssim"].append(float(ssim(pred, gt)))
+            if lpips_params is not None:
+                metrics["lpips"].append(float(lpips(lpips_params, pred, gt)))
         if pc > 1:
-            pad = [float("nan")] * (-(-n // pc) - len(psnrs))
-            psnrs = [v for v in all_gather_metrics(psnrs + pad)
-                     if np.isfinite(v)]
-            ssims = [v for v in all_gather_metrics(ssims + pad)
-                     if np.isfinite(v)]
-        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+            pad = [float("nan")] * (-(-n // pc) - len(metrics["psnr"]))
+            metrics = {k: [x for x in all_gather_metrics(v + pad)
+                           if np.isfinite(x)] for k, v in metrics.items()}
+        return {k: float(np.mean(v)) for k, v in metrics.items()}
 
     def _dump_val_images(self, ckpt_dir, step):
         """The test split's first view rendered to ckpt_dir/val as

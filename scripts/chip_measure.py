@@ -9,6 +9,10 @@
         # chip_smoke's NSVF fixture, one fit of each step count's own
         # schedule: its test PSNR, and the constant image's
     python3 scripts/chip_measure.py kitti          # phase "kitti" alone
+    python3 scripts/chip_measure.py spread-swap 7  # the small featured and
+        # train steps of --reference-spread at batch seed 7, once with the
+        # kernels and once with each kernel's plain version in its place
+        # on the card: each side's distance to float64 ("f32 frac")
 
 Run from the repository root on a machine with an NVIDIA GPU.
 """
@@ -89,8 +93,68 @@ def lego_steps(*counts):
             os.chdir(cwd)
 
 
+# kernel wrapper -> its plain version (same arguments), by module
+SWAPS = {"K1 fwd": ("rayreduce", "fused_ray_reduce"),
+         "K1 bwd": ("rayreduce", "fused_ray_reduce_bwd"),
+         "K2 fwd": ("brickreduce", "brick_reduce"),
+         "K2 bwd": ("brickreduce", "brick_reduce_bwd"),
+         "K3 fwd": ("composite", "composite_fwd"),
+         "K3 bwd": ("composite", "composite_bwd")}
+
+
+def _plain_on_card(names):
+    """Each named wrapper replaced by its plain version, which runs on
+    the card's tensors as they are; returns the undo."""
+    import importlib
+    saved = []
+    for name in names:
+        mod, fn = SWAPS[name]
+        m = importlib.import_module(f"ingp_tpu_torch.kernels.{mod}")
+        plain = getattr(m, {"composite_fwd": "composite_plain"}.get(
+            fn, f"{fn}_plain"))
+        saved.append((m, fn, getattr(m, fn)))
+        setattr(m, fn, plain)
+
+    def undo():
+        for m, fn, f in saved:
+            setattr(m, fn, f)
+    return undo
+
+
+def spread_swap(seed="7"):
+    import json
+    from ingp_tpu_torch.kernels import build
+    small = dict(cs.SMALL, batch_size=512, samples_per_ray=16)
+    feat = cs.bench_hparams(**small, **cs.FEATURES, use_exposure=True)
+    for what, h, step, uer in (
+            ("features, gate closed", feat, 0, 0.5),
+            ("train", cs.bench_hparams(**small), 0, None)):
+        for swap in [None, *SWAPS, "all"]:
+            undo = _plain_on_card(
+                () if swap is None else SWAPS if swap == "all" else (swap,))
+            build.LAUNCHES.clear()
+            try:
+                worst, _, dist = cs.reference_step(
+                    f"swap {swap} [{what}]", h, step, uer, int(seed),
+                    check=False, f64=True)
+            finally:
+                undo()
+            card, cpu, _ = dist["f32 frac"]
+            keys = ("model.density_table", "model.xyz_net.0.w",
+                    "model.rgb_table")
+            cs.log(f"swap [{what}, batch seed {seed}], plain on the card: "
+                   f"{swap}: launches {json.dumps(dict(build.LAUNCHES))}; "
+                   f"card against cpu "
+                   f"{json.dumps({k: float(f'{worst[k]:.3g}') for k in keys})}"
+                   f"; to float64 (f32 frac) card "
+                   f"{json.dumps({k: float(f'{card[k]:.3g}') for k in keys})}"
+                   f", cpu "
+                   f"{json.dumps({k: float(f'{cpu[k]:.3g}') for k in keys})}")
+
+
 COMMANDS = {"new": new, "profile-cost": profile_cost,
-            "lego-steps": lego_steps, "kitti": cs.phase_kitti}
+            "lego-steps": lego_steps, "kitti": cs.phase_kitti,
+            "spread-swap": spread_swap}
 
 
 def main(argv):

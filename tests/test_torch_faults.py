@@ -3,9 +3,9 @@ it: `seed` seeds the port's generator (an explicit `seed=` still wins),
 `ckpt_load` loads its checkpoint, `optimize_ext` adds the pose
 corrections and their optimiser group, `stream_autocal`,
 `stream_head_frac` and the `fused` encoder reach the configs and a step
-runs with each, and `eval_lpips`, which the port has not ported, raises
-NotImplementedError instead of being dropped, and so does a dataset's
-per-ray exposure (JAX's own step fails on it); the CLI flags that
+runs with each, `eval_lpips` adds LPIPS to `validate`, and a dataset's
+per-ray exposure raises NotImplementedError instead of being dropped
+(JAX's own step fails on it); the CLI flags that
 `ingp_tpu_torch.train.main` once refused (--distributed,
 --coordinator_address, --num_gpus 2 (two spawned gloo ranks),
 --debug_nans) run. The model
@@ -100,8 +100,20 @@ def test_hparam_honoured_or_refused(hparam, tmp_path):
                                           device="cpu").params
         return
     if hparam == "eval_lpips":
-        with pytest.raises(NotImplementedError, match=hparam):
-            _params(_hparams(eval_lpips=True))
+        # honoured: validate loads the weights and reports lpips
+        from ingp_tpu_torch.core import prng
+        from ingp_tpu_torch.training import lpips as tl
+        path = tmp_path / "w.npz"
+        tl.save_lpips(path, tl.random_lpips_params(prng.prng_key(0),
+                                                   device="cpu"))
+        system = tt.NeRFSystem(
+            _hparams(eval_lpips=True, lpips_weights=str(path)),
+            SyntheticDataset(split="train", img_size=32, n_train=2),
+            SyntheticDataset(split="test", img_size=32, n_test=1),
+            device="cpu")
+        m = system.validate()
+        assert set(m) == {"psnr", "ssim", "lpips"}
+        assert np.isfinite(m["lpips"]) and m["lpips"] >= 0
         return
     # honoured: each reaches the configs, and a step runs with it
     kw = {"encoder": "fused"} if hparam == "fused" else \
