@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each line flushed and stamped with elapsed seconds:
 
 1. device: torch's device name and nvidia-smi's name and power limit;
-2. build: one nvcc call compiles ingp_tpu_torch/kernels/csrc/*.cu;
+2. build: two nvcc calls, started together, compile the kernels'
+   library (ingp_tpu_torch/kernels/csrc/*.cu but the probes: K1-K3 and
+   their backward kernels, which the training path loads) and the
+   probes' (csrc/probe_*.cu);
 2b. native: g++ builds the native batch sampler's library (fit's
    default sampler), whose 100 batches of bench.py's dataset at 8192
    rays must equal the direct gather rays[img, pix] (and the labels,
@@ -542,23 +545,30 @@ def phase_device():
 
 
 def phase_build():
+    """The two kernel libraries (`kernels.build`: K1-K3 for the training
+    path, and the probes'), one nvcc call each, both started together;
+    then each kernel instantiation's registers and spills."""
     from ingp_tpu_torch.kernels import build
     t = time.time()
-    report = build.build_library()
+    reports = build.build_libraries(("kernels", "probes"))
     build.load_library()
-    log(f"build: {len(build.sources())} sources, one nvcc call, "
-        f"{time.time() - t:.2f} s -> {build.library_path().name}")
+    build.load_probe_library()
+    log(f"build: " + ", ".join(
+        f"{lib} {len(build.sources(lib))} sources -> "
+        f"{build.library_path(lib).name}" for lib in reports)
+        + f"; two nvcc calls side by side, {time.time() - t:.2f} s")
     # one line per kernel instantiation: registers and spill bytes
-    name = spill = None
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "spill stores" in line:
-            spill = line.split(",")[1].strip()
-        elif "Used" in line and "registers" in line and name:
-            regs = line.split("Used")[1].split(",")[0].strip()
-            log(f"  ptxas: {name[:72]}: {regs}, {spill}")
-            name = None
+    for lib, report in reports.items():
+        name = spill = None
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "spill stores" in line:
+                spill = line.split(",")[1].strip()
+            elif "Used" in line and "registers" in line and name:
+                regs = line.split("Used")[1].split(",")[0].strip()
+                log(f"  ptxas {lib}: {name[:72]}: {regs}, {spill}")
+                name = None
 
 
 def make_system(h, img_size, device, seed=0):
@@ -778,18 +788,25 @@ def k1_group_times(rec, phase="train"):
     """K1 forward at every level-group shape the first training step
     launched (the check above takes the first one of each variant): host
     and CUDA-graph ms beside the bound, on that shape's recorded
-    arguments."""
+    arguments; then the graph ms summed over the step's launches (each
+    shape's time times its count) beside the bound's sum."""
     from ingp_tpu_torch.kernels import rayreduce as k1
     from ingp_tpu_torch.probes.common import graph_ms
     out = {}
+    tot = [0.0, 0.0]
     for (v, shape), a in sorted(rec.shapes.items()):
         fn = lambda a=a: k1.fused_ray_reduce(**a)   # noqa: E731
         ms, g = cuda_ms(fn, 20), graph_ms(fn)
         bound, _ = bound_of(*_k1_size(a)[:2])
         out[(v, shape)] = {"ms": ms, "graph_ms": g, "bound_ms": bound}
+        n = rec.counts[(v, shape)]
+        tot = [tot[0] + n * g, tot[1] + n * bound]
         log(f"kernel fused_ray_reduce [{phase}, {v}] group {shape}: {ms:.4f} "
             f"ms, from a CUDA graph {g:.4f} ms, bound {bound:.4f} ms (graph "
-            f"at {bound / g:.1%} of the bound)")
+            f"at {bound / g:.1%} of the bound); {n} launches in the step")
+    log(f"kernel fused_ray_reduce [{phase}]: graph ms summed over the "
+        f"step's {sum(rec.counts.values())} launches {tot[0]:.4f}, bound "
+        f"{tot[1]:.4f} (at {tot[1] / max(tot[0], 1e-9):.1%} of the bound)")
     return out
 
 
@@ -3543,7 +3560,7 @@ def phase_probes():
     import torch
     from ingp_tpu_torch.kernels import build
     from ingp_tpu_torch.probes import common
-    from ingp_tpu_torch.probes import gather_layouts, kernel_split
+    from ingp_tpu_torch.probes import gather_layouts, kernel_split, vmem_gather
     out = {}
     checks = collections.Counter()
     floor = common.floor_ms()
@@ -3570,6 +3587,12 @@ def phase_probes():
             for line in kernel_split.piece_shares(
                     {v: r["ms"] for v, r in res.items()}):
                 log(f"probe {line}")
+        if module is vmem_gather:
+            floor_w = vmem_gather.write_floor(torch.device(DEVICE))
+            for line in vmem_gather.floor_lines(
+                    [(c, res[c.variant]) for c in cases], floor_w):
+                log(f"probe {line}")
+            res[primary]["write_floor"] = floor_w
         if module is gather_layouts:
             for line in gather_layouts.before_after(
                     [(c, res[c.variant]) for c in cases]):

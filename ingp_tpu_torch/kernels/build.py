@@ -1,14 +1,20 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources are compiled by ONE `nvcc` call into a shared
-library with a plain C interface, loaded with `ctypes`. No PyTorch
-header is included, so the build takes seconds (a source that includes
-`torch/extension.h` takes minutes to compile). The library lands in
-`kernels/_build/` (git-ignored) under a name keyed by a hash of the
-sources, so an edited source is rebuilt and an unchanged one is reused.
+The `csrc/*.cu` sources make two shared libraries with a plain C
+interface, loaded with `ctypes`, each compiled by ONE `nvcc` call:
+"kernels" (K1-K3 and their backward kernels, the library the training
+path loads) and "probes" (`csrc/probe_*.cu`, the Hopper forms of the TPU
+layout probes, which only `ingp_tpu_torch/probes` launches). No PyTorch
+header is included, so a build takes seconds (a source that includes
+`torch/extension.h` takes minutes to compile). A library lands in
+`kernels/_build/` (git-ignored) under a name keyed by a hash of its
+sources and the headers they include, so an edited source is rebuilt
+and an unchanged one is reused.
 
-Nothing is built or loaded at import time: `load_library()` does it on
-the first kernel launch.
+Nothing is built or loaded at import time: `load_library()` (the
+kernels) and `load_probe_library()` do it on the first launch that
+needs them; `build_libraries()` builds both at once, two `nvcc`
+processes side by side.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,7 +52,9 @@ _SIGNATURES = {
     "ingp_brick_reduce_bwd_pos": [_P, _I, _I64, _P, _P, _P, _I64, _P, _I64,
                                   _I64, _P, _I, _I64, _I, _I, _I, _I, _I,
                                   _P],
-    # the probes' kernels (ingp_tpu_torch/probes)
+}
+# the probes' kernels (ingp_tpu_torch/probes), csrc/probe_*.cu
+_PROBE_SIGNATURES = {
     "ingp_probe_split_fwd": [_I, _I, _P, _I64, _P, _P, _P, _P, _P, _I64,
                              _I, _I, _P],
     "ingp_probe_split_bwd": [_I, _I, _P, _P, _I64, _P, _P, _P, _P, _P,
@@ -65,24 +74,47 @@ _SIGNATURES = {
     "ingp_probe_gather_shape": [_I, _I64, _I, _I64, _I, _P],
 }
 
+# library -> its launchers' signatures
+SIGNATURES = {"kernels": _SIGNATURES, "probes": _PROBE_SIGNATURES}
+PROBE_PREFIX = "probe_"   # a source of the probes' library
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
 # kernel launches so far, by launcher symbol; `launch` counts each one
 LAUNCHES: collections.Counter = collections.Counter()
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(lib: str = "kernels") -> list[Path]:
+    """The .cu sources of library `lib` ("kernels" or "probes")."""
+    if lib not in SIGNATURES:
+        raise ValueError(f"no kernel library {lib!r}")
+    return sorted(p for p in CSRC.glob("*.cu")
+                  if p.name.startswith(PROBE_PREFIX) == (lib == "probes"))
 
 
-def source_hash() -> str:
+def headers(lib: str = "kernels") -> list[Path]:
+    """The csrc headers that library `lib`'s sources include, directly
+    or through another header: an edit to a header that only the other
+    library includes leaves this one's hash as it was."""
+    found, todo = set(), list(sources(lib))
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            p = CSRC / name
+            if p.exists() and p not in found:
+                found.add(p)
+                todo.append(p)
+    return sorted(found)
+
+
+def source_hash(lib: str = "kernels") -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sources(lib) + headers(lib):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libingp_kernels-{source_hash()}.so"
+def library_path(lib: str = "kernels") -> Path:
+    return BUILD_DIR / f"libingp_{lib}-{source_hash(lib)}.so"
 
 
 def _nvcc() -> str:
@@ -96,49 +128,94 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library() -> str:
-    """Compile csrc/*.cu with one nvcc call (`--threads 0`: its steps
-    run on as many threads as the host has CPUs); returns nvcc's resource
-    report (-Xptxas -v: registers, spills, shared memory per kernel).
-    Raises RuntimeError with nvcc's stderr if the build fails."""
-    out = library_path()
+def _nvcc_cmd(lib: str, out: Path) -> list[str]:
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "--threads", "0", "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out)] + [str(p) for p in sources(lib)]
+
+
+def build_libraries(libs=("kernels", "probes")) -> dict:
+    """Compile each library of `libs` with one nvcc call (`--threads 0`:
+    its steps run on as many threads as the host has CPUs), all calls
+    started together; returns {library: nvcc's resource report} (-Xptxas
+    -v: registers, spills, shared memory per kernel). Each call writes
+    its library and its report to files of this process's own, which
+    replace the final `.so` and `.log` only once it succeeded, so two
+    processes building the same hash do not touch each other's files.
+    Raises RuntimeError with nvcc's stderr if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "--threads", "0", "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp)] + [str(p) for p in sources()]
-    try:
-        res = subprocess.run(cmd, check=True, capture_output=True,
-                             text=True, timeout=NVCC_TIMEOUT_S)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed (exit {e.returncode}):\n"
-                           f"{e.stderr}") from e
-    os.replace(tmp, out)
-    report = res.stderr
-    out.with_suffix(".log").write_text(report)
-    return report
+    outs = {lib: library_path(lib) for lib in libs}
+    tmps = {lib: out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            for lib, out in outs.items()}
+    # each report to a file: a pipe that nobody reads would stall nvcc
+    logs = {lib: open(tmp.with_suffix(".log"), "w+")
+            for lib, tmp in tmps.items()}
+    procs = {lib: subprocess.Popen(_nvcc_cmd(lib, tmps[lib]),
+                                   stdout=subprocess.DEVNULL,
+                                   stderr=logs[lib])
+             for lib in libs}
+    reports, failed = {}, []
+    for lib, proc in procs.items():
+        try:
+            proc.wait(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log = logs[lib]
+        log.seek(0)
+        reports[lib] = log.read()
+        log.close()
+        if proc.returncode:
+            failed.append(f"{lib}: nvcc failed (exit {proc.returncode}):\n"
+                          f"{reports[lib]}")
+            for p in (tmps[lib], Path(log.name)):
+                p.unlink(missing_ok=True)
+        else:
+            os.replace(tmps[lib], outs[lib])
+            os.replace(log.name, outs[lib].with_suffix(".log"))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def build_library(lib: str = "kernels") -> str:
+    """Compile library `lib` with one nvcc call; returns nvcc's resource
+    report."""
+    return build_libraries((lib,))[lib]
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if this source hash has no
-    library yet."""
-    path = library_path()
+def _load(lib: str) -> ctypes.CDLL:
+    path = library_path(lib)
     if not path.exists():
-        build_library()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        build_library(lib)
+    dll = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES[lib].items():
+        fn = getattr(dll, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return dll
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library (K1-K3), built first if this source hash has
+    no library yet."""
+    return _load("kernels")
+
+
+def load_probe_library() -> ctypes.CDLL:
+    """The probes' library (csrc/probe_*.cu), built first if this source
+    hash has no library yet."""
+    return _load("probes")
 
 
 def launch(name: str, *args) -> None:
-    """Call launcher `name` and count the launch in LAUNCHES; raise if it
-    reports a CUDA error."""
-    rc = getattr(load_library(), name)(*args)
+    """Call launcher `name` (of either library) and count the launch in
+    LAUNCHES; raise if it reports a CUDA error."""
+    dll = load_probe_library() if name in _PROBE_SIGNATURES \
+        else load_library()
+    rc = getattr(dll, name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1

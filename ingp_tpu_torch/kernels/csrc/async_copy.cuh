@@ -1,7 +1,8 @@
-// Shared device code of the kernels that copy from global into shared
-// memory asynchronously (probe_rows.cu, probe_gather.cu): mbarriers, the
-// bulk copy that completes on one (the 1-D form of the Tensor Memory
-// Accelerator) and the 16-byte cp.async of sm_80.
+// Shared device code of the kernels that copy between global and shared
+// memory asynchronously (probe_rows.cu, probe_gather.cu, probe_onchip.cu):
+// mbarriers, the bulk copies of the Tensor Memory Accelerator's 1-D form
+// (global to shared, completing on an mbarrier; shared to global,
+// completing in bulk groups) and the 16-byte cp.async of sm_80.
 #pragma once
 
 #include <cstdint>
@@ -77,6 +78,40 @@ __device__ __forceinline__ void ingp_cp_async16(void* dst, const void* src) {
                    ingp_smem_addr(dst)),
                "l"(src)
                : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to
+// the async proxy (a bulk copy that reads them next).
+__device__ __forceinline__ void ingp_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared to global memory, in this thread's open bulk
+// group; ingp_bulk_commit() closes the group.
+__device__ __forceinline__ void ingp_bulk_store(void* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(ingp_smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void ingp_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared-memory source (their buffers before that may be refilled).
+template <int N>
+__device__ __forceinline__ void ingp_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until all of this thread's bulk groups have completed.
+__device__ __forceinline__ void ingp_bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Commit this thread's cp.async copies and wait for all of them.

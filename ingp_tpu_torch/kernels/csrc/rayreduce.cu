@@ -15,7 +15,15 @@
 // there are ~2 FMAs per byte moved. The design reads the corner points
 // with 16-byte loads, keeps the accumulators in registers, lets the
 // L1/L2 caches serve the rows that cells of one run share, and writes
-// the feature-major outputs coalesced along k.
+// the feature-major outputs coalesced along k. A staged form, in which a
+// block of 256 cells copied the lattice points its cells read into
+// shared memory once (cp.async) and trilerped from there with this
+// body's bits, was timed against this body on every recorded input and
+// at the split probe's shapes and was slower at every training shape
+// (PERF.md, row 1): the warps of this body stream their stores
+// independently, where the staged block waited at five barriers and
+// three dependent global loads per chunk of 256 cells, and the L1
+// already serves the points that cells of a run share.
 //
 // K1 backward (ingp_ray_reduce_bwd): replaces rayreduce_pallas.py
 // _frr_bwd (_bwd_kernel), which scatters each cell's row cotangent onto

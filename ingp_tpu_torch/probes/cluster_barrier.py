@@ -144,7 +144,7 @@ def _library(variant: str):
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {variant}:\n{res.stderr}")
     fn = ctypes.CDLL(str(lib)).ingp_probe_gather
-    fn.argtypes = build._SIGNATURES["ingp_probe_gather"]
+    fn.argtypes = build.SIGNATURES["probes"]["ingp_probe_gather"]
     fn.restype = ctypes.c_int
     return fn
 

@@ -95,7 +95,7 @@ def launch_shape(op: str, t_shape, i_shape) -> dict:
     dims = (ctypes.c_int * 5)()
     t_rows, t_cols = (t_shape if len(t_shape) == 2
                       else (1, int(torch.Size(t_shape).numel())))
-    rc = build.load_library().ingp_probe_gather_shape(
+    rc = build.load_probe_library().ingp_probe_gather_shape(
         OPS[op], t_rows, t_cols, i_shape[0], i_shape[1], dims)
     if rc != 0:
         raise ValueError(f"{op}: no launch for table {tuple(t_shape)}, "

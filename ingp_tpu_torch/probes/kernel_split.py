@@ -870,7 +870,10 @@ def _fwd_case(mode, order, table, ins):
                  for inp in ins],
         "index_select of the unique rows (the gather in front of the "
         "TPU's K1)",
-        sum(s[0] for s in sizes), sum(s[1] for s in sizes), "fwd", symbol)
+        sum(s[0] for s in sizes), sum(s[1] for s in sizes), "fwd", symbol,
+        # K1 forward's body against its bound without the groups' host
+        # dispatch, which a host time of the split carries
+        graph=mode in ("full", "shipping"))
 
 
 def _bwd_case(mode, order, grad, ins, slot_rows):

@@ -8,13 +8,17 @@ table cannot sit there; `gather_rows` (kernels/csrc/probe_onchip.cu)
 answers two questions instead:
 
   (a) "l2":   the probe's (8192, 256) table, which stays in the 50 MB L2
-              once read, gathered with 16-byte __ldg loads;
+              once read, gathered through a ring of shared-memory stages
+              by 1-D bulk copies (TMA), a row in and a tile of 8 rows
+              out per copy;
   (b) "smem": the largest f32 (rows, 256) table one block can hold, 227
               rows, copied into shared memory once by a persistent block
               per SM, gathered by the same 196,608 ids drawn below 227;
               timed against the same small table read through "l2".
 
-The library yardstick is `index_select`.
+The library yardstick is `index_select`. `write_floor` times what the
+card takes to write the output at all: a `zero_()` of it and a
+same-size device-to-device `copy_`, from CUDA graphs.
 
 Run on the card: python -m ingp_tpu_torch.probes.vmem_gather
 (--device cpu runs the plain versions only).
@@ -33,13 +37,14 @@ SYMBOL = "ingp_probe_onchip_gather"   # the kernel's launcher
 N = 196_608             # rows gathered
 SMEM_ROWS = 227         # 227 rows x 1 KiB = 232,448 B, one block's limit
 WHERE = {"l2": 0, "smem": 1}
+RING_ROW_BYTES = 28_672  # the largest row the L2 form's ring stages
 
 
 def gather_rows(table, idx, where: str = "l2"):
     """out[j] = table[idx[j]] for an f32 table (n_rows, W), W a multiple
-    of 4, read through the L2 ("l2") or from shared memory ("smem", at
-    most 232,448 bytes of table); an id outside [0, n_rows) gives a zero
-    row. CPU tensors run `gather_rows_plain`."""
+    of 4, read through the L2 ("l2": W * 4 at most RING_ROW_BYTES) or
+    from shared memory ("smem", at most 232,448 bytes of table); an id
+    outside [0, n_rows) gives a zero row. CPU tensors run `gather_rows_plain`."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     dev = table.device
@@ -49,7 +54,10 @@ def gather_rows(table, idx, where: str = "l2"):
                             align=16)
     build.check_cuda_tensor("idx", idx, (torch.int32,), 1, dev)
     n_rows, w = table.shape
-    if w % 4 or (where == "smem" and n_rows * w * 4 > 232_448):
+    if where not in WHERE:
+        raise ValueError(f"gather_rows: no form {where!r}")
+    if w % 4 or (where == "smem" and n_rows * w * 4 > 232_448) or (
+            where == "l2" and w * 4 > RING_ROW_BYTES):
         raise ValueError(f"gather_rows: table {tuple(table.shape)} for "
                          f"{where}")
     out = torch.empty((idx.shape[0], w), device=dev)
@@ -71,7 +79,8 @@ def gather_rows_plain(table, idx):
 def cases(device, seed: int = 0, rows: int = ROWS, n: int = N,
           smem_rows: int = SMEM_ROWS) -> list:
     """(a) the probe's table through the L2; (b) the 227-row table from
-    shared memory and through the L2."""
+    shared memory and through the L2. Each also from a CUDA graph
+    (`common.Case.graph`)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     big = torch.randn((rows, W), generator=gen, device=device)
     small = torch.randn((smem_rows, W), generator=gen, device=device)
@@ -90,13 +99,46 @@ def cases(device, seed: int = 0, rows: int = ROWS, n: int = N,
             lambda t=t, i=i: gather_rows_plain(t, i),
             lambda t=t, i=i: t.index_select(0, i), "index_select",
             t.numel() * 4 + n * 4 + n * W * 4, 0, "equal", SYMBOL, rows=n,
-            row_bytes=W * 4))
+            row_bytes=W * 4, graph=True))
     return out
+
+
+def write_floor(device, seed: int = 0, n: int = N) -> dict:
+    """What the card takes to write the (n, W) f32 output at all, from
+    CUDA graphs (`common.graph_ms`): {"zero_ms": a `zero_()` of it,
+    "copy_ms": a device-to-device `copy_` of a same-size tensor into
+    it}. Card only."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = torch.empty((n, W), device=device)
+    src = torch.randn((n, W), generator=gen, device=device)
+    return {"zero_ms": common.graph_ms(out.zero_),
+            "copy_ms": common.graph_ms(lambda: out.copy_(src))}
+
+
+def floor_lines(results, floor: dict) -> list:
+    """Lines setting each "(a) l2" variant's CUDA-graph time beside the
+    library call's, the bound and the write floor (`write_floor`);
+    results: [(case, numbers)] of `common.measure`."""
+    lines = []
+    for c, r in results:
+        if not c.variant.startswith("(a) l2,"):
+            continue
+        g, b = r["graph_ms"], r["bound_ms"]
+        lines.append(
+            f"vmem_gather write floor [{c.variant}]: graph {g:.4f} ms, "
+            f"index_select {r['library_graph_ms']:.4f} ms; bound {b:.4f} ms "
+            f"(at {b / g:.1%}); zero_ {floor['zero_ms']:.4f} ms, copy_ "
+            f"{floor['copy_ms']:.4f} ms (the gather at "
+            f"{g / floor['zero_ms']:.3f}x the zero_)")
+    return lines
 
 
 def main(argv=None):
     a = common.parse_args(sys.argv[1:] if argv is None else argv, __doc__)
-    common.run(cases(a.device, a.seed), a.device, a.iters)
+    res = common.run(cases(a.device, a.seed), a.device, a.iters)
+    if a.device.type == "cuda":
+        for line in floor_lines(res, write_floor(a.device, a.seed)):
+            print(line, flush=True)
 
 
 if __name__ == "__main__":

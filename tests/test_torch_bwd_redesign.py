@@ -379,24 +379,85 @@ def test_k2_bwd_row_stride(length):
 # ------------------------------------------------ the launchers' signatures
 
 def test_every_launcher_has_its_ctypes_signature():
-    """Each `extern "C"` launcher of kernels/csrc has an entry in
-    build._SIGNATURES with one ctypes type per parameter, 64-bit where
-    the C parameter is int64_t and c_float where it is float: ctypes
-    passes an undeclared int as 32 bits and a Python float as a double,
-    which cuts a 64-bit count or garbles a float argument."""
+    """Each `extern "C"` launcher of kernels/csrc has an entry in the
+    signature table of its library (build.SIGNATURES: the kernels'
+    sources, and the probes' csrc/probe_*.cu) with one ctypes type per
+    parameter, 64-bit where the C parameter is int64_t and c_float where
+    it is float: ctypes passes an undeclared int as 32 bits and a Python
+    float as a double, which cuts a 64-bit count or garbles a float
+    argument. The two libraries share no source and no launcher."""
     import ctypes
     import re
     from ingp_tpu_torch.kernels import build
     kind = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
             "float": ctypes.c_float}
-    found = {}
-    for src in build.sources():
-        text = src.read_text()
-        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
-            params = [" ".join(p.split()) for p in m.group(2).split(",")]
-            found[m.group(1)] = [
-                ctypes.c_void_p if "*" in p else kind[p.rsplit(" ", 1)[0]]
-                for p in params]
-    assert set(found) == set(build._SIGNATURES)
-    for name, types in found.items():
-        assert build._SIGNATURES[name] == types, name
+    assert set(build.SIGNATURES) == {"kernels", "probes"}
+    assert not set(build.sources("kernels")) & set(build.sources("probes"))
+    assert (set(build.sources("kernels")) | set(build.sources("probes"))
+            == set(build.CSRC.glob("*.cu")))
+    for lib, table in build.SIGNATURES.items():
+        found = {}
+        for src in build.sources(lib):
+            text = src.read_text()
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+                params = [" ".join(p.split()) for p in m.group(2).split(",")]
+                found[m.group(1)] = [
+                    ctypes.c_void_p if "*" in p
+                    else kind[p.rsplit(" ", 1)[0]] for p in params]
+        assert set(found) == set(table), lib
+        for name, types in found.items():
+            assert table[name] == types, name
+
+
+# ------------------------------------------------ the two libraries' builds
+
+def test_library_hash_covers_only_its_own_headers(tmp_path, monkeypatch):
+    """A library's hash reads its sources and the headers they include,
+    directly or through another header, and no other: an edit to a
+    header only the probes include leaves the kernels' library (the one
+    training loads) as it was."""
+    from ingp_tpu_torch.kernels import build
+    assert [p.name for p in build.headers("kernels")] == ["k3.cuh",
+                                                          "trilerp.cuh"]
+    assert "async_copy.cuh" in {p.name for p in build.headers("probes")}
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "x.cuh"\n')
+    (csrc / "x.cuh").write_text('#include "y.cuh"\n')
+    (csrc / "y.cuh").write_text("// y\n")
+    (csrc / "probe_b.cu").write_text('#include "z.cuh"\n')
+    (csrc / "z.cuh").write_text("// z\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert [p.name for p in build.headers("kernels")] == ["x.cuh", "y.cuh"]
+    kernels, probes = build.source_hash("kernels"), build.source_hash("probes")
+    (csrc / "z.cuh").write_text("// z, edited\n")
+    assert build.source_hash("kernels") == kernels
+    assert build.source_hash("probes") != probes
+    (csrc / "y.cuh").write_text("// y, edited\n")
+    assert build.source_hash("kernels") != kernels
+
+
+def test_build_writes_its_files_only_once_it_succeeded(tmp_path, monkeypatch):
+    """`build_libraries` with a stand-in compiler: each call reports into
+    a file of this process's own; a build that succeeded replaces the
+    library and its report, one that failed raises with its report and
+    leaves neither a library nor a stray file behind."""
+    import sys
+    from ingp_tpu_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    script = ("import sys, pathlib; lib, out = sys.argv[1:]; "
+              "sys.stderr.write(f'report of {lib}'); "
+              "sys.exit(3) if lib == 'probes' else "
+              "pathlib.Path(out).write_bytes(b'so')")
+    monkeypatch.setattr(build, "_nvcc_cmd", lambda lib, out: [
+        sys.executable, "-c", script, lib, str(out)])
+    assert build.build_libraries(("kernels",)) == {
+        "kernels": "report of kernels"}
+    lib = build.library_path("kernels")
+    assert lib.read_bytes() == b"so"
+    assert lib.with_suffix(".log").read_text() == "report of kernels"
+    with pytest.raises(RuntimeError, match="probes: nvcc failed "
+                                           r"\(exit 3\):\nreport of probes"):
+        build.build_libraries(("kernels", "probes"))
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])

@@ -54,6 +54,24 @@ def test_k1_matches_plain(cuda, dtype, F):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("W,n", [(256, 3001), (4, 1000), (1000, 517),
+                                  (7000, 33)])
+def test_onchip_ring_rows_and_zero_rows(cuda, W, n):
+    """The on-chip gather's L2 form (the TMA ring) bitwise against its
+    plain version: rows of 16 bytes to 28 KB (32 to 1 rows a stage), a
+    ragged last tile, ids outside the table give zero rows; rows past
+    the ring's stage are refused."""
+    from ingp_tpu_torch.probes import vmem_gather as vg
+    gen = torch.Generator(device=cuda).manual_seed(W)
+    table = torch.randn((300, W), generator=gen, device=cuda)
+    idx = torch.randint(-3, 303, (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ref = vg.gather_rows_plain(table, idx)
+    assert torch.equal(vg.gather_rows(table, idx, "l2"), ref)
+    with pytest.raises(ValueError):
+        vg.gather_rows(torch.zeros((4, 7172), device=cuda), idx[:4], "l2")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_plain(cuda, dtype):
     rng = np.random.default_rng(1)

@@ -307,7 +307,7 @@ class _RefusingLibrary:
 
 def _off_the_cpu(monkeypatch, library):
     """Let the wrappers take meta tensors as if they lay on the card."""
-    monkeypatch.setattr(build, "load_library", lambda: library)
+    monkeypatch.setattr(build, "load_probe_library", lambda: library)
     monkeypatch.setattr(build, "stream_of", lambda dev: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
@@ -361,7 +361,8 @@ def test_only_the_vector_kernels_ask_16_byte_alignment(monkeypatch, op):
             (name, align)))
     pg._check(_OnTheCard(), _OnTheCard(), op, op)
     assert asked == [("table", want), ("idx", want)]
-    src = next(p for p in build.sources() if p.name == "probe_gather.cu")
+    src = next(p for p in build.sources("probes")
+               if p.name == "probe_gather.cu")
     assert ("return op == AXIS0 || op == FLAT_CLUSTER ? 16 : 4;"
             in src.read_text())
 
