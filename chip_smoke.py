@@ -241,6 +241,7 @@ import collections
 import contextlib
 import inspect
 import json
+import re
 import subprocess
 import sys
 import time
@@ -567,8 +568,17 @@ def phase_build():
                 spill = line.split(",")[1].strip()
             elif "Used" in line and "registers" in line and name:
                 regs = line.split("Used")[1].split(",")[0].strip()
-                log(f"  ptxas {lib}: {name[:72]}: {regs}, {spill}")
+                log(f"  ptxas {lib}: {kernel_label(name)[:72]}: {regs}, "
+                    f"{spill}")
                 name = None
+
+
+def kernel_label(mangled):
+    """A mangled kernel name less its anonymous namespace, so that the
+    printed head shows the template arguments (`23brick_reduce_bwd_
+    kernelILi16ELb1ELb1ELb1EE...`: F 16, JAC, BF16, POS)."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    return mangled[3 + len(m.group(1)) + int(m.group(1)):] if m else mangled
 
 
 def make_system(h, img_size, device, seed=0):
@@ -997,11 +1007,10 @@ def k2_sharing(rws, ok):
             else 0}
 
 
-def k2b_size(a, tag):
-    """(bytes, f32 operations) of K2 backward on arguments a, logged with
-    how its cells share rows: the cells that read a row, those of them
-    with a nonzero cotangent (live), and the runs, distinct (row, point)
-    pairs and rows of the live cells."""
+def _k2b_cells(a):
+    """(ok, live): (cells,) bool masks, level-major, of the K2 backward's
+    cells on arguments a that read a row, and of those the ones with a
+    nonzero cotangent."""
     rws, lf, F, dj = a["rows"], a["lf"], a["F"], a["djac"]
     Lw, Nn = rws.shape
     Fj = 0 if dj is None else dj.shape[2] // Lw
@@ -1010,7 +1019,18 @@ def k2b_size(a, tag):
     ct = a["dfeats"].reshape(Nn, Lw, F).abs().sum(-1)
     if dj is not None:
         ct = ct + dj.reshape(3, Nn, Lw, Fj).abs().sum((0, 3))
-    live = ok & (ct.T.reshape(-1) != 0)
+    return ok, ok & (ct.T.reshape(-1) != 0)
+
+
+def k2b_size(a, tag):
+    """(bytes, f32 operations) of K2 backward on arguments a, logged with
+    how its cells share rows: the cells that read a row, those of them
+    with a nonzero cotangent (live), and the runs, distinct (row, point)
+    pairs and rows of the live cells."""
+    rws, lf, F, dj = a["rows"], a["lf"], a["F"], a["djac"]
+    Lw, Nn = rws.shape
+    Fj = 0 if dj is None else dj.shape[2] // Lw
+    ok, live = _k2b_cells(a)
     n_pts = _corner_points(rws, lf, ok)
     n_live = _corner_points(rws, lf, live)
     sh = k2_sharing(rws, live)
@@ -1736,8 +1756,8 @@ def phase_fused(train_system, train_stats):
     # cotangent (row 4b) at F = 16
     ext = NeRFSystem(bench_hparams(**FUSED, optimize_ext=True), tr, te,
                      device=DEVICE, seed=0)
-    rec = Recorder(k2, "brick_reduce_bwd_pos",
-                   lambda a: grid_table_name(a["table"],
+    rec = Recorder(k2, "brick_reduce_bwd_and_pos",
+                   lambda a: grid_table_name(a["storage"],
                                              a["djac"] is not None))
     try:
         ext.training_step(tr.sample_batch(rng, BATCH))
@@ -1747,17 +1767,20 @@ def phase_fused(train_system, train_stats):
     ext.training_step(tr.sample_batch(rng, BATCH))
     torch.cuda.synchronize()
     pos_launches = build.LAUNCHES[POS_KERNEL[1]]
+    row4 = build.LAUNCHES[KERNELS["brick_reduce_bwd"][0]]
     log(f"fused ext: second step's launches "
         f"{ {k: v for k, v in launch_counts().items() if v} }, "
-        f"{POS_KERNEL[0]} {pos_launches}; |ext| "
+        f"{POS_KERNEL[0]} {pos_launches} (row 4 alone {row4}); |ext| "
         f"{ext_norms(ext)}")
-    if not pos_launches or not all(v > 0 for v in ext_norms(ext).values()):
-        raise AssertionError("fused ext: no position cotangent")
+    if not pos_launches or row4 or not all(
+            v > 0 for v in ext_norms(ext).values()):
+        raise AssertionError("fused ext: no position cotangent, or row 4 "
+                             "launched without it")
     del ext
     torch.cuda.empty_cache()
     with torch.no_grad():
         checks[POS_KERNEL[0]] = {
-            f"fused ext, {tag}": check_k2_bwd_pos(a, f"fused ext, {tag}")
+            f"fused ext, {tag}": check_k2_bwd_and_pos(a, f"fused ext, {tag}")
             for tag, (a, _) in rec.calls.items()}
     del rec
 
@@ -3036,10 +3059,13 @@ KITTI_DOWNSAMPLE = 0.5
 # EXT_STEPS: the grid's second warmup sweep comes at step 16, outside
 KITTI_STEPS, EXT_STEPS, HIGHBAY_STEPS = 48, 16, 10
 HIGHBAY_WH = (160, 100)       # 2 valid stereo frames of 4
-# the position-cotangent variant of the K2 backward: its kernels line row
-POS_KERNEL = ("brick_reduce_bwd_pos", "ingp_brick_reduce_bwd_pos",
+# the K2 backward's position-cotangent variant (the table gradient and
+# the sample positions' cotangent in one launch): its kernels line row
+POS_KERNEL = ("brick_reduce_bwd_and_pos", "ingp_brick_reduce_bwd_and_pos",
               "ingp_tpu_torch/kernels/csrc/brickreduce.cu",
               "ingp_tpu/ops/pallas/brickreduce_pallas.py:224")
+# rounds of the in-turn graph timing of the variant beside row 4 alone
+POS_ROUNDS = 3
 
 
 def kitti_config_copy(path):
@@ -3053,38 +3079,121 @@ def kitti_config_copy(path):
     return path
 
 
-def check_k2_bwd_pos(a, tag):
+def _bwd_and_pos_plain(b):
+    """The variant's plain version on arguments b: (the table gradient
+    of brick_reduce_bwd_plain, dpos of brick_reduce_bwd_pos_plain)."""
+    from ingp_tpu_torch.kernels import brickreduce as k2
+    args = (b["rows"], b["lf"], b["dfeats"], b["djac"], b["F"],
+            b["jac_lo"], b["jac_hi"])
+    grad = k2.brick_reduce_bwd_plain(b["grad"], *args, bf16=b["bf16"])
+    return grad, k2.brick_reduce_bwd_pos_plain(b["storage"], *args)
+
+
+def check_k2_bwd_and_pos(a, tag):
     """The K2 backward's position-cotangent variant on captured arguments
-    a, against its plain version on the CPU: 1e-5 of the largest |value|
-    (+1e-12); cells marked -9 give exact zeros. Bound: the row id, the 7
-    lf planes, the cotangents of every cell and its (3,) output, and the
-    distinct corner points its cells read."""
+    a, against both plain versions on the CPU: dpos to 1e-5 of its
+    largest |value| (+1e-12), the table gradient to K2 backward's
+    tolerance (1e-5 of its largest |value| + 1e-12: the atomics add in
+    any order); dpos exact zeros on every cell that is not live (all-zero
+    cotangents, -9, a row outside the table), on the recorded inputs and
+    with all three marks written into a copy. Then, from CUDA graphs in
+    POS_ROUNDS rounds of turns, row 4 alone (`brick_reduce_bwd`, the POS
+    = false launch) and the variant on the same inputs, each into one
+    reused gradient: the difference is the position cotangent's added
+    cost, beside its bound (the corner points of the live cells, read
+    from the storage table, and 12 bytes of dpos a cell). The row's bound
+    is row 4's bound plus that."""
     import torch
     from ingp_tpu_torch.kernels import brickreduce as k2
-    table, rws, lf, F, dj = a["table"], a["rows"], a["lf"], a["F"], a["djac"]
+    from ingp_tpu_torch.probes.common import graph_ms
+    storage, rws, lf, F, dj = (a["storage"], a["rows"], a["lf"], a["F"],
+                               a["djac"])
     Lw, Nn = rws.shape
     Fj = 0 if dj is None else dj.shape[2] // Lw
     cells = Lw * Nn
-    r = rws.reshape(-1)
-    ok = _local_ok(lf) & (r >= 0) & (r < table.shape[0])
-    n_pts = _corner_points(rws, lf, ok)
-    log(f"kernel {POS_KERNEL[0]} [{tag}]: table {tuple(table.shape)} "
-        f"{table.dtype}, rows {tuple(rws.shape)}, jacobian cotangent "
-        f"{dj is not None}; {int(ok.sum())} cells read a row, {n_pts} "
-        f"(row, point) pairs")
-    nbytes = (n_pts * F * table.element_size()
-              + cells * 4 * (1 + 7 + F + 3 * Fj + 3))
-    flops = int(ok.sum()) * 8 * (2 * F + 6 * Fj + 24)
-    res = compare(
-        POS_KERNEL[0], tag, lambda: k2.brick_reduce_bwd_pos(**a),
-        lambda dev: k2.brick_reduce_bwd_pos_plain(**to_dev(a, dev)),
-        lambda o: ([o], []), nbytes, flops, "cpu", 1e-12)
-    marked = torch.zeros(cells, dtype=torch.bool, device=lf.device)
-    marked[::7] = True
-    check_marked(POS_KERNEL[0], tag,
-                 lambda m: (k2.brick_reduce_bwd_pos(**{**a, "lf": m}),
-                            k2.brick_reduce_bwd_pos_plain(**{**a, "lf": m})),
-                 lf, lambda t: t.reshape(3, -1).T)
+    nbytes, flops = k2b_size(a, tag)
+    ok, live = _k2b_cells(a)
+    n_pts = _corner_points(rws, lf, live)
+    add_bytes = n_pts * F * storage.element_size() + 12 * cells
+    add_flops = int(live.sum()) * 8 * (2 * F + 6 * Fj + 24)
+    log(f"kernel {POS_KERNEL[0]} [{tag}]: storage {tuple(storage.shape)} "
+        f"{storage.dtype}, rows {tuple(rws.shape)}, jacobian cotangent "
+        f"{dj is not None}; {int(live.sum())} live cells read {n_pts} "
+        f"(row, point) pairs of the storage; {int((ok & ~live).sum())} "
+        f"cells with all-zero cotangents and {int((~ok).sum())} marked -9 "
+        f"or outside the table write exact zeros")
+    refs = {}
+
+    def plain(dev):
+        refs[str(dev)] = _bwd_and_pos_plain(_zero_grad(a, dev))
+        return refs[str(dev)]
+
+    def run(b):
+        return b["grad"], k2.brick_reduce_bwd_and_pos(**b)
+    grad = _zero_grad(a, DEVICE)
+    res = compare(POS_KERNEL[0], tag, lambda: run(_zero_grad(a, DEVICE)),
+                  plain, lambda o: ([o[1]], []), nbytes + add_bytes,
+                  flops + add_flops, "cpu", 1e-12,
+                  lambda: k2.brick_reduce_bwd_and_pos(**grad))
+    out_g, out_p = to_dev(run(_zero_grad(a, DEVICE)), "cpu")
+    ref_g, ref_p = refs["cpu"]
+    err, scale = max_err([out_g], [ref_g])
+    if not err <= 1e-5 * scale + 1e-12:
+        raise AssertionError(f"{POS_KERNEL[0]} [{tag}]: the table gradient "
+                             f"disagrees with brick_reduce_bwd_plain")
+    dead = ~live.reshape(Lw, Nn).cpu()
+    if bool(out_p[:, dead].any()) or bool(ref_p[:, dead].any()):
+        raise AssertionError(f"{POS_KERNEL[0]} [{tag}]: dpos not zero on "
+                             f"cells that are not live")
+    log(f"kernel {POS_KERNEL[0]} [{tag}]: table gradient max_abs_err "
+        f"{err:.3e} (max |plain| {scale:.3e}); dpos exact zeros on the "
+        f"{int(dead.sum())} cells that are not live (kernel and plain)")
+    # the three marks in a copy: -9 on every 7th cell, a row outside the
+    # table on every 11th from the 3rd, zero cotangents on every 5th
+    lfm, rwm = lf.clone(), rws.clone()
+    lfm[0:3].reshape(3, -1)[:, ::7] = -9.0
+    rwm.view(-1)[3::11] = storage.shape[0] + 3
+    quiet = torch.zeros(cells, dtype=torch.bool, device=lf.device)
+    quiet[::5] = True
+    keep = ~quiet.reshape(Lw, Nn).T                       # (N, Lw)
+    marked = {**a, "lf": lfm, "rows": rwm,
+              "dfeats": a["dfeats"] * keep.repeat_interleave(F, 1),
+              "djac": None if dj is None else
+              dj * keep.repeat_interleave(Fj, 1)}
+    for who, (_, p) in (("kernel", run(_zero_grad(marked, DEVICE))),
+                        ("plain", _bwd_and_pos_plain(
+                            _zero_grad(marked, DEVICE)))):
+        p = p.reshape(3, -1)
+        for what, idx in (("-9", slice(0, None, 7)),
+                          ("outside the table", slice(3, None, 11)),
+                          ("zero cotangents", slice(0, None, 5))):
+            if bool(p[:, idx].any()):
+                raise AssertionError(f"{POS_KERNEL[0]} [{tag}]: {who} dpos "
+                                     f"not zero on cells marked {what}")
+    log(f"kernel {POS_KERNEL[0]} [{tag}]: -9, rows outside the table and "
+        f"zero cotangents written into every 7th, 11th and 5th cell: dpos "
+        f"exact zeros there (kernel and plain)")
+    # row 4 alone and the variant from CUDA graphs, in turns
+    bwd = {k: grad[k] for k in ("grad", "rows", "lf", "dfeats", "djac", "F",
+                                "jac_lo", "jac_hi", "bf16")}
+    fns = {"row 4": lambda: k2.brick_reduce_bwd(**bwd),
+           "variant": lambda: k2.brick_reduce_bwd_and_pos(**grad)}
+    times = {k: [] for k in fns}
+    for i in range(POS_ROUNDS):
+        for k in (fns if i % 2 == 0 else reversed(list(fns))):
+            times[k].append(graph_ms(fns[k]))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    add_bound, add_by = bound_of(add_bytes, add_flops)
+    res.update(row4_graph_ms=med["row 4"], variant_graph_ms=med["variant"],
+               added_ms=med["variant"] - med["row 4"],
+               added_bound_ms=add_bound)
+    log(f"kernel {POS_KERNEL[0]} [{tag}]: from CUDA graphs in {POS_ROUNDS} "
+        f"rounds of turns, the variant {med['variant']:.4f} ms, row 4 alone "
+        f"{med['row 4']:.4f} ms: the position cotangent adds "
+        f"{res['added_ms']:.4f} ms against its bound {add_bound:.4f} ms "
+        f"({add_by}: {n_pts} live corner points x {F} x "
+        f"{storage.element_size()} B + 12 B x {cells} cells = "
+        f"{add_bytes / 1e6:.3f} MB); rounds {times}")
     return res
 
 
@@ -3111,8 +3220,8 @@ def ext_steps(what, h, tr, te, steps, record=None):
     rec = None
     if record:
         table = table_namer(system.model_cfg)
-        rec = Recorder(k2, "brick_reduce_bwd_pos",
-                       lambda a: table(a["table"], a["djac"] is not None))
+        rec = Recorder(k2, "brick_reduce_bwd_and_pos",
+                       lambda a: table(a["storage"], a["djac"] is not None))
     try:
         losses = [system.training_step(tr.sample_batch(rng))["loss"]]
     finally:
@@ -3277,13 +3386,17 @@ def phase_kitti():
                                      "move")
             check_launched({k: launches[k] for k in
                             ("fused_ray_reduce", "brick_reduce",
-                             "fused_ray_reduce_bwd", "brick_reduce_bwd",
-                             POS_KERNEL[0])}, "the kitti ext brick steps")
+                             "fused_ray_reduce_bwd", POS_KERNEL[0])},
+                           "the kitti ext brick steps")
+            if launches["brick_reduce_bwd"]:
+                raise AssertionError(f"kitti ext brick: row 4 launched "
+                                     f"without the position cotangent: "
+                                     f"launches {launches}")
             pos_launches = launches[POS_KERNEL[0]]
             del system
             with torch.no_grad():
                 checks = {POS_KERNEL[0]: {
-                    f"kitti ext, {tag}": check_k2_bwd_pos(a, f"kitti ext, "
+                    f"kitti ext, {tag}": check_k2_bwd_and_pos(a, f"kitti ext, "
                                                           f"{tag}")
                     for tag, (a, _) in rec.calls.items()}}
             del rec
@@ -4858,7 +4971,8 @@ def pos_kernel_row(checks, launches, per_step):
     variant: its launches in phase "kitti"'s stream-brick pose-refinement
     steps (or phase "fused"'s), its largest error over the variants
     checked, and the numbers of its density-table variant (else its
-    first)."""
+    first), with the position cotangent's added cost over row 4 alone
+    and that cost's bound."""
     p = checks.get("kitti ext, density table, jac",
                    next(iter(checks.values())))
     name, _, source, replaces = POS_KERNEL
@@ -4868,7 +4982,9 @@ def pos_kernel_row(checks, launches, per_step):
             "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
             "ms": p["ms"], "graph_ms": p["graph_ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-            "bound_by": p["bound_by"], "library_ms": None}
+            "bound_by": p["bound_by"], "library_ms": None,
+            "added_ms": p["added_ms"],
+            "added_bound_ms": p["added_bound_ms"]}
 
 
 def fused_kernel_rows(checks, launches):

@@ -19,14 +19,15 @@ jacobian cotangents at any row stride, so the column slices that
 `torch.cat`'s backward hands over need no copy. `BrickReduceFn` binds
 forward and backward into a `torch.autograd.Function`.
 
-The backward's position-cotangent variant (`brick_reduce_bwd_pos`,
-`ingp_brick_reduce_bwd_pos` in `csrc/brickreduce.cu`) gives each cell's
-cotangent of its fractional position frac (lf rows 3-5), which JAX's
-XLA form of the reduce (`brickgrid.reduce_feats` / `reduce_feats_jac`)
-carries through AD and its Pallas form drops (`_fbr_bwd` returns a zero
-lf cotangent). `BrickReduceFn` launches it, beside the table backward,
-only when lf requires a gradient: with pose refinement, whose sample
-positions depend on the refined poses.
+The backward's position-cotangent variant (`brick_reduce_bwd_and_pos`,
+`ingp_brick_reduce_bwd_and_pos` in `csrc/brickreduce.cu`) also gives, in
+the same launch, each cell's cotangent of its fractional position frac
+(lf rows 3-5), which JAX's XLA form of the reduce
+(`brickgrid.reduce_feats` / `reduce_feats_jac`) carries through AD and
+its Pallas form drops (`_fbr_bwd` returns a zero lf cotangent).
+`BrickReduceFn` launches it in place of `brick_reduce_bwd` only when lf
+requires a gradient: with pose refinement, whose sample positions depend
+on the refined poses.
 """
 from __future__ import annotations
 
@@ -307,6 +308,26 @@ def brick_reduce_bwd(grad, rows, lf, dfeats, djac, F: int, jac_lo: int = 0,
     if grad.device.type != "cuda":
         raise ValueError(f"brick_reduce_bwd: unsupported device "
                          f"{grad.device}")
+    Fj, vec, dj_strides = _bwd_checks("brick_reduce_bwd", grad, rows, lf,
+                                      dfeats, djac, F, jac_lo, jac_hi, 4)
+    Lw, N = rows.shape
+    if Lw * N == 0:
+        return grad
+    with torch.cuda.device(grad.device):
+        build.launch("ingp_brick_reduce_bwd", build.ptr(grad),
+                     grad.shape[0], build.ptr(rows), build.ptr(lf),
+                     build.ptr(dfeats), dfeats.stride(0), build.ptr(djac),
+                     *dj_strides, Lw, N, grad.shape[1], F,
+                     int(djac is not None), jac_lo, Fj, int(bf16), vec,
+                     build.stream_of(grad.device))
+    return grad
+
+
+def _bwd_checks(name, grad, rows, lf, dfeats, djac, F, jac_lo, jac_hi,
+                w_mult):
+    """The K2 backward's checks of its arguments on the card (W a
+    multiple of w_mult); returns (Fj, vec, the jacobian cotangent's plane
+    and row strides)."""
     Fj = _jac_window(F, jac_lo, jac_hi)
     dev = grad.device
     # 16-byte rows: the kernel adds each lattice point's F lanes with
@@ -316,10 +337,10 @@ def brick_reduce_bwd(grad, rows, lf, dfeats, djac, F: int, jac_lo: int = 0,
     build.check_cuda_tensor("lf", lf, (torch.float32,), 3, dev)
     Lw, N = rows.shape
     W = grad.shape[1]
-    if F not in SUPPORTED_F or W < 27 * F or W % 4:
-        raise ValueError(f"brick_reduce_bwd: unsupported F={F}, W={W}")
+    if F not in SUPPORTED_F or W < 27 * F or W % w_mult:
+        raise ValueError(f"{name}: unsupported F={F}, W={W}")
     if Lw > BWD_MAX_LEVELS:
-        raise ValueError(f"brick_reduce_bwd: Lw = {Lw} > {BWD_MAX_LEVELS}")
+        raise ValueError(f"{name}: Lw = {Lw} > {BWD_MAX_LEVELS}")
     if lf.shape != (8, Lw, N):
         raise ValueError(f"shape mismatch: lf {tuple(lf.shape)}, rows "
                          f"{(Lw, N)}")
@@ -328,21 +349,62 @@ def brick_reduce_bwd(grad, rows, lf, dfeats, djac, F: int, jac_lo: int = 0,
     if djac is not None:
         vec |= _check_rows("djac", djac, (3, N, Lw * Fj), dev) << 1
         dj_strides = djac.stride()[:2]
+    return Fj, vec, dj_strides
+
+
+def brick_reduce_bwd_and_pos(grad, storage, rows, lf, dfeats, djac, F: int,
+                             jac_lo: int = 0, jac_hi: int | None = None,
+                             bf16: bool = False):
+    """`brick_reduce_bwd` into `grad` and, in the same pass over the
+    cells, the cotangent of `brick_reduce`'s fractional positions (lf
+    rows 3-5): each cell reads its cotangents once for both. Returns dpos
+    (3, Lw, N) f32, as `brick_reduce_bwd_pos_plain` gives it.
+
+    Args: those of `brick_reduce_bwd`, and `storage`, the (n_rows, W)
+    table the forward read (f32, or bf16 exactly when bf16; W a multiple
+    of 8 on the card), whose 8 corner points of its row each cell reads.
+    Cells marked -9, whose row lies outside the table or whose cotangents
+    are all zero get exact zeros."""
+    if grad.device.type == "cpu":
+        brick_reduce_bwd_plain(grad, rows, lf, dfeats, djac, F, jac_lo,
+                               jac_hi, bf16)
+        return brick_reduce_bwd_pos_plain(storage, rows, lf, dfeats, djac,
+                                          F, jac_lo, jac_hi)
+    if grad.device.type != "cuda":
+        raise ValueError(f"brick_reduce_bwd_and_pos: unsupported device "
+                         f"{grad.device}")
+    Fj, vec, dj_strides = _bwd_checks("brick_reduce_bwd_and_pos", grad, rows,
+                                      lf, dfeats, djac, F, jac_lo, jac_hi, 8)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    build.check_cuda_tensor("storage", storage, (dtype,), 2, grad.device,
+                            align=16)
+    if storage.shape != grad.shape:
+        raise ValueError(f"storage shape {tuple(storage.shape)} != grad "
+                         f"{tuple(grad.shape)}")
+    Lw, N = rows.shape
+    dpos = torch.empty((3, Lw, N), device=grad.device)
     if Lw * N == 0:
-        return grad
-    with torch.cuda.device(dev):
-        build.launch("ingp_brick_reduce_bwd", build.ptr(grad),
-                     grad.shape[0], build.ptr(rows), build.ptr(lf),
-                     build.ptr(dfeats), dfeats.stride(0), build.ptr(djac),
-                     *dj_strides, Lw, N, W, F, int(djac is not None),
-                     jac_lo, Fj, int(bf16), vec, build.stream_of(dev))
-    return grad
+        return dpos
+    with torch.cuda.device(grad.device):
+        build.launch("ingp_brick_reduce_bwd_and_pos", build.ptr(grad),
+                     build.ptr(storage), grad.shape[0], build.ptr(rows),
+                     build.ptr(lf), build.ptr(dfeats), dfeats.stride(0),
+                     build.ptr(djac), *dj_strides, build.ptr(dpos), Lw, N,
+                     grad.shape[1], F, int(djac is not None), jac_lo, Fj,
+                     int(bf16), vec, build.stream_of(grad.device))
+    return dpos
 
 
 def brick_reduce_bwd_pos_plain(table, rows, lf, dfeats, djac, F: int,
                                jac_lo: int = 0, jac_hi: int | None = None):
-    """Plain PyTorch version of `brick_reduce_bwd_pos` (same contract),
-    PLAIN_CHUNK cells at a time."""
+    """The cotangent of `brick_reduce`'s fractional positions, in plain
+    PyTorch: (3, Lw, N) f32, each cell's d loss / d lf[3:6] from the
+    feature cotangent dfeats (N, Lw*F) and the jacobian cotangent djac
+    (3, N, Lw*Fj) or None, reading the 8 corner points of its row of
+    `table` (f32 or bf16 storage) as the forward did; PLAIN_CHUNK cells
+    at a time. Cells marked -9, or whose row lies outside the table, get
+    exact zeros. `brick_reduce_bwd_and_pos` returns it beside the table
+    gradient."""
     Fj = _jac_window(F, jac_lo, jac_hi)
     Lw, N = rows.shape
     out = torch.empty((3, Lw, N), device=table.device)
@@ -361,52 +423,6 @@ def brick_reduce_bwd_pos_plain(table, rows, lf, dfeats, djac, F: int,
                 3, -1, Fj)
         out[:, :, sl] = trilerp_rows_pos_bwd_plain(
             g, lfc, dfc, djc, F, jac_lo, Fj).reshape(3, Lw, c)
-    return out
-
-
-def brick_reduce_bwd_pos(table, rows, lf, dfeats, djac, F: int,
-                         jac_lo: int = 0, jac_hi: int | None = None):
-    """The cotangent of `brick_reduce`'s fractional positions: (3, Lw, N)
-    f32, each cell's d loss / d lf[3:6] from the feature cotangent
-    dfeats (N, Lw*F) and the jacobian cotangent djac (3, N, Lw*Fj) or
-    None (their rows contiguous, other strides free), reading the 8
-    corner points of its row of `table` (f32 or bf16 storage) as the
-    forward did. Cells marked -9, or whose row lies outside the table,
-    get exact zeros. No atomics: each cell writes its own three
-    floats."""
-    if table.device.type == "cpu":
-        return brick_reduce_bwd_pos_plain(table, rows, lf, dfeats, djac, F,
-                                          jac_lo, jac_hi)
-    if table.device.type != "cuda":
-        raise ValueError(f"brick_reduce_bwd_pos: unsupported device "
-                         f"{table.device}")
-    Fj = _jac_window(F, jac_lo, jac_hi)
-    dev = table.device
-    build.check_cuda_tensor("table", table, (torch.float32, torch.bfloat16),
-                            2, dev, align=16)
-    build.check_cuda_tensor("rows", rows, (torch.int32,), 2, dev)
-    build.check_cuda_tensor("lf", lf, (torch.float32,), 3, dev)
-    Lw, N = rows.shape
-    W = table.shape[1]
-    if F not in SUPPORTED_F or W < 27 * F or W % 8:
-        raise ValueError(f"brick_reduce_bwd_pos: unsupported F={F}, W={W}")
-    if lf.shape != (8, Lw, N):
-        raise ValueError(f"lf shape {tuple(lf.shape)} != (8, {Lw}, {N})")
-    _check_rows("dfeats", dfeats, (N, Lw * F), dev)
-    dj_strides = (0, 0)
-    if djac is not None:
-        _check_rows("djac", djac, (3, N, Lw * Fj), dev)
-        dj_strides = djac.stride()[:2]
-    out = torch.empty((3, Lw, N), device=dev)
-    if Lw * N == 0:
-        return out
-    with torch.cuda.device(dev):
-        build.launch("ingp_brick_reduce_bwd_pos", build.ptr(table),
-                     int(table.dtype == torch.bfloat16), table.shape[0],
-                     build.ptr(rows), build.ptr(lf), build.ptr(dfeats),
-                     dfeats.stride(0), build.ptr(djac), *dj_strides,
-                     build.ptr(out), Lw, N, W, F, int(djac is not None),
-                     jac_lo, Fj, build.stream_of(dev))
     return out
 
 
@@ -441,9 +457,10 @@ class BrickReduceFn(torch.autograd.Function):
     Inputs: the read's token (the autograd link to the master), its
     gradient sink, the storage table that the forward kernel reads, and
     the `brick_reduce` arguments. The backward runs `brick_reduce_bwd`
-    into the sink's f32 accumulator and, when lf needs a gradient,
-    `brick_reduce_bwd_pos` for lf rows 3-5 (the other rows, the local
-    cell and the scale, get zeros); rows get none."""
+    into the sink's f32 accumulator or, when lf needs a gradient,
+    `brick_reduce_bwd_and_pos`, which also gives lf rows 3-5 their
+    cotangent (the other rows, the local cell and the scale, get zeros);
+    rows get none."""
 
     @staticmethod
     def forward(ctx, token, sink, storage, rows, lf, F, with_jac, jac_lo,
@@ -465,12 +482,14 @@ class BrickReduceFn(torch.autograd.Function):
         sink, F, jac_lo, jac_hi, bf16 = ctx.cfg
         dj = rows_unit_stride(djac) if djac.numel() else None
         df = rows_unit_stride(dfeats)
-        brick_reduce_bwd(sink.buffer(), rows, lf, df, dj, F, jac_lo, jac_hi,
-                         bf16)
         dlf = None
-        if ctx.storage is not None:
-            dpos = brick_reduce_bwd_pos(ctx.storage, rows, lf, df, dj, F,
-                                        jac_lo, jac_hi)
+        if ctx.storage is None:
+            brick_reduce_bwd(sink.buffer(), rows, lf, df, dj, F, jac_lo,
+                             jac_hi, bf16)
+        else:
+            dpos = brick_reduce_bwd_and_pos(sink.buffer(), ctx.storage, rows,
+                                            lf, df, dj, F, jac_lo, jac_hi,
+                                            bf16)
             zero = dpos.new_zeros((1,) + tuple(dpos.shape[1:]))
             dlf = torch.cat([zero.expand(3, -1, -1), dpos,
                              zero.expand(2, -1, -1)])

@@ -49,9 +49,9 @@ _SIGNATURES = {
                               _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P],
     "ingp_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P],
-    "ingp_brick_reduce_bwd_pos": [_P, _I, _I64, _P, _P, _P, _I64, _P, _I64,
-                                  _I64, _P, _I, _I64, _I, _I, _I, _I, _I,
-                                  _P],
+    "ingp_brick_reduce_bwd_and_pos": [_P, _P, _I64, _P, _P, _P, _I64, _P,
+                                      _I64, _I64, _P, _I, _I64, _I, _I, _I,
+                                      _I, _I, _I, _I, _P],
 }
 # the probes' kernels (ingp_tpu_torch/probes), csrc/probe_*.cu
 _PROBE_SIGNATURES = {

@@ -72,28 +72,50 @@
 // The vector atomics still take most of the time left (the split's
 // no-atomics stub).
 //
-// K2 backward's position-cotangent variant (ingp_brick_reduce_bwd_pos):
-// each (level, sample) cell's cotangent of its fractional position frac,
+// K2 backward's position-cotangent variant (POS,
+// ingp_brick_reduce_bwd_and_pos): the same tiled kernel also writes each
+// (level, sample) cell's cotangent of its fractional position frac,
 // which JAX's XLA form of the reduce gives through AD (its Pallas form,
 // _fbr_bwd, returns a zero lf cotangent). With pose refinement the
 // sample positions depend on the refined poses, so the wrapper launches
-// it beside ingp_brick_reduce_bwd whenever lf requires a gradient; no
-// other run launches it. Per cell, over its 8 corner points v:
+// the variant in place of the plain backward whenever lf requires a
+// gradient; no other run launches it. Per cell, over its 8 corner points
+// v:
 //   dfrac_a = sum d_a w_b w_c <v, df>
 //             + scale * (d_a d_b w_c <v_j, dj_b> + d_a d_c w_b <v_j, dj_c>)
 // ({a, b, c} the axes, w the corner's weight along an axis, d = dw/dfrac
 // = -1 or +1; the trilinear weight has no pure second derivative), the
-// jacobian term on the window [jac_lo, jac_lo + Fj). A simple form: a
-// thread per cell, level-major, so its row id, lf and output accesses
-// are coalesced; it reads its 8 corners as the forward does and its
-// cotangent rows at the caller's strides. Each cell writes its own three
-// floats: no atomics. Cells marked -9 (or whose row lies outside the
-// table) write exact zeros.
+// jacobian term on the window [jac_lo, jac_lo + Fj).
+// Bound on the H100: bytes. Of what a cell needs (its row id, lf, F +
+// 3*Fj cotangent floats, 8 corner points of the storage row, 3 output
+// floats) all but the corner points and the output are what the table
+// backward reads for the same cell: at F = 8 about 26 of ~198 bytes a
+// cell are corner points. The kernel this replaces was a second launch
+// on the same inputs, a thread per cell reading its cotangent rows with
+// scalar loads at a 4*F-byte stride across the warp, and it held all F
+// lanes of the jacobian cotangent in registers and loaded the corners of
+// cells whose cotangents are all zero. Fused, a live cell reuses step
+// 1's staged cotangents (only the window's lanes) and its row id and lf
+// loads, issues each corner point's load ahead of that corner's atomics,
+// and writes its 3 floats at c, n_cells + c and 2 n_cells + c, coalesced
+// since the threads run sample-fastest; a cell that is not live
+// (all-zero cotangents, -9, a row outside the table) loads no corner and
+// writes exact zeros. The variant's added cost is bound by the live
+// cells' corner points and 12 bytes a cell. On an H100 at 700 W, from
+// CUDA graphs on pose refinement's inputs, the variant takes 0.69-0.84
+// of the time of the two launches it replaces, with dpos bit for bit
+// theirs.
+#include <type_traits>
+
 #include "trilerp.cuh"
 
 namespace {
 
 constexpr int kK2Threads = 256;   // threads per block, and cells per tile
+
+// the storage table's element type in the K2 backward: bf16 with BF16
+template <bool BF16>
+using k2b_storage_t = std::conditional_t<BF16, __nv_bfloat16, float>;
 
 // Samples per tile: S samples x Lw levels fill the block's 256 cells.
 __host__ __device__ __forceinline__ int k2_tile_samples(int Lw) {
@@ -354,9 +376,49 @@ __device__ __forceinline__ void k2b_get(const float* p, float (&v)[F]) {
   }
 }
 
+// The position cotangent of one corner point v of a cell, added into
+// g: s_df = <v, df> and s_j = <v_j, dj_k> over the jacobian window (FMAs
+// in lane order), then per axis a d_a w_b w_e s_df + scale d_a (d_b w_e
+// s_j[b] + d_e w_b s_j[e]). jx, jy, jz hold the cell's jacobian
+// cotangent at its feature lanes.
+template <int F, bool JAC>
+__device__ __forceinline__ void k2b_pos_corner(
+    int a, int b, int e, const float (&v)[F], const float (&dfv)[F],
+    const float (&jx)[F], const float (&jy)[F], const float (&jz)[F],
+    int jac_lo, int Fj, float fx, float fy, float fz, float sc,
+    float (&g)[3]) {
+  float s_df = 0.f, s_j[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    s_df = fmaf(v[f], dfv[f], s_df);
+    if (JAC && f >= jac_lo && f < jac_lo + Fj) {
+      s_j[0] = fmaf(v[f], jx[f], s_j[0]);
+      s_j[1] = fmaf(v[f], jy[f], s_j[1]);
+      s_j[2] = fmaf(v[f], jz[f], s_j[2]);
+    }
+  }
+  const int o[3] = {a, b, e};
+  const float fr[3] = {fx, fy, fz};
+  float w[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    w[k] = o[k] ? fr[k] : 1.f - fr[k];
+    d[k] = o[k] ? 1.f : -1.f;
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const int q = (p + 1) % 3, u = (p + 2) % 3;
+    float t = d[p] * w[q] * w[u] * s_df;
+    if (JAC) t += sc * d[p] * (d[q] * w[u] * s_j[q] + d[u] * w[q] * s_j[u]);
+    g[p] += t;
+  }
+}
+
 // vec: bit 0 the df rows, bit 1 the dj rows may be read with 16-byte
-// loads.
-template <int F, bool JAC, bool BF16>
+// loads. With POS the kernel also writes each cell's position cotangent
+// dpos (3, Lw, N), reading the cell's 8 corner points of the storage
+// table (bf16 with BF16, else f32); without it table and dpos are unused.
+template <int F, bool JAC, bool BF16, bool POS>
 __global__ void __launch_bounds__(kK2Threads)
     brick_reduce_bwd_kernel(float* __restrict__ grad, int64_t n_rows,
                             const int* __restrict__ rows,
@@ -364,7 +426,9 @@ __global__ void __launch_bounds__(kK2Threads)
                             const float* __restrict__ df, int64_t df_stride,
                             const float* __restrict__ dj, int64_t dj_plane,
                             int64_t dj_stride, int Lw, int64_t N, int W,
-                            int jac_lo, int Fj, int vec) {
+                            int jac_lo, int Fj, int vec,
+                            const k2b_storage_t<BF16>* __restrict__ table,
+                            float* __restrict__ dpos) {
   extern __shared__ __align__(16) float k2b_smem[];
   const int S = k2_tile_samples(Lw);
   const int Qf = k2b_row_stride(Lw * F), Qj = k2b_row_stride(Lw * Fj);
@@ -418,17 +482,32 @@ __global__ void __launch_bounds__(kK2Threads)
     }
   }
   // a cell with all-zero cotangents (the streams' padded tail) adds
-  // nothing: every lane value would be 0
+  // nothing: every lane value would be 0 (and so would its position
+  // cotangent, written as exact zeros, as for a cell that reads no row)
   bool live = false;
 #pragma unroll
   for (int f = 0; f < F; ++f)
     live |= dfv[f] != 0.f || jx[f] != 0.f || jy[f] != 0.f || jz[f] != 0.f;
-  if (!live || !ingp_local_ok(lx, ly, lz) || r < 0 || r >= n_rows) return;
+  if (!live || !ingp_local_ok(lx, ly, lz) || r < 0 || r >= n_rows) {
+    if constexpr (POS) {
+      dpos[c] = 0.f;
+      dpos[n_cells + c] = 0.f;
+      dpos[2 * n_cells + c] = 0.f;
+    }
+    return;
+  }
   float* row = grad + (int64_t)r * W;
   const int ix = (int)lx, iy = (int)ly, iz = (int)lz;
+  float g[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int a = k >> 2, b = (k >> 1) & 1, e = k & 1;
+    const int pt = 9 * (ix + a) + 3 * (iy + b) + (iz + e);
+    // the corner point's load goes out before this corner's atomics
+    float pv[POS ? F : 1];
+    if constexpr (POS)
+      ingp_load_point<k2b_storage_t<BF16>, F>(
+          table + ((int64_t)r * W + pt * F), pv);
     float w, d1, d2, d3, v[F];
     ingp_point_planes(a, b, e, fx, fy, fz, w, d1, d2, d3);
     bool any = false;
@@ -440,19 +519,26 @@ __global__ void __launch_bounds__(kK2Threads)
       if (BF16) v[f] = ingp_round_bf16(v[f]);
       any |= v[f] != 0.f;
     }
-    if (any)
-      ingp_red_point<F>(row + (9 * (ix + a) + 3 * (iy + b) + (iz + e)) * F,
-                        v);
+    if (any) ingp_red_point<F>(row + pt * F, v);
+    if constexpr (POS)
+      k2b_pos_corner<F, JAC>(a, b, e, pv, dfv, jx, jy, jz, jac_lo, Fj, fx,
+                             fy, fz, sc, g);
+  }
+  if constexpr (POS) {
+    dpos[c] = g[0];
+    dpos[n_cells + c] = g[1];
+    dpos[2 * n_cells + c] = g[2];
   }
 }
 
-template <int F, bool JAC, bool BF16>
+template <int F, bool JAC, bool BF16, bool POS>
 int launch_bwd(void* grad, int64_t n_rows, const void* rows, const void* lf,
                const void* df, int64_t df_stride, const void* dj,
                int64_t dj_plane, int64_t dj_stride, int Lw, int64_t N,
-               int W, int jac_lo, int Fj, int vec, cudaStream_t s) {
+               int W, int jac_lo, int Fj, int vec, const void* table,
+               void* dpos, cudaStream_t s) {
   const size_t bytes = k2b_smem_bytes(Lw, F, Fj, JAC);
-  auto kernel = brick_reduce_bwd_kernel<F, JAC, BF16>;
+  auto kernel = brick_reduce_bwd_kernel<F, JAC, BF16, POS>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -462,167 +548,51 @@ int launch_bwd(void* grad, int64_t n_rows, const void* rows, const void* lf,
   kernel<<<(unsigned)((N + S - 1) / S), kK2Threads, bytes, s>>>(
       (float*)grad, n_rows, (const int*)rows, (const float*)lf,
       (const float*)df, df_stride, (const float*)dj, dj_plane, dj_stride,
-      Lw, N, W, jac_lo, Fj, vec);
+      Lw, N, W, jac_lo, Fj, vec, (const k2b_storage_t<BF16>*)table,
+      (float*)dpos);
   return (int)cudaGetLastError();
 }
 
-template <int F>
+template <int F, bool POS>
 int dispatch_bwd(int with_jac, int bf16, void* grad, int64_t n_rows,
                  const void* rows, const void* lf, const void* df,
                  int64_t df_stride, const void* dj, int64_t dj_plane,
                  int64_t dj_stride, int Lw, int64_t N, int W, int jac_lo,
-                 int Fj, int vec, cudaStream_t s) {
+                 int Fj, int vec, const void* table, void* dpos,
+                 cudaStream_t s) {
 #define BWD_ARGS                                                       \
   grad, n_rows, rows, lf, df, df_stride, dj, dj_plane, dj_stride, Lw, N, \
-      W, jac_lo, Fj, vec, s
+      W, jac_lo, Fj, vec, table, dpos, s
   if (with_jac)
-    return bf16 ? launch_bwd<F, true, true>(BWD_ARGS)
-                : launch_bwd<F, true, false>(BWD_ARGS);
-  return bf16 ? launch_bwd<F, false, true>(BWD_ARGS)
-              : launch_bwd<F, false, false>(BWD_ARGS);
+    return bf16 ? launch_bwd<F, true, true, POS>(BWD_ARGS)
+                : launch_bwd<F, true, false, POS>(BWD_ARGS);
+  return bf16 ? launch_bwd<F, false, true, POS>(BWD_ARGS)
+              : launch_bwd<F, false, false, POS>(BWD_ARGS);
 #undef BWD_ARGS
 }
 
-constexpr int kPosThreads = 256;
-
-template <typename T, int F, bool JAC>
-__global__ void __launch_bounds__(kPosThreads)
-    brick_reduce_bwd_pos_kernel(const T* __restrict__ table, int64_t n_rows,
-                                const int* __restrict__ rows,
-                                const float* __restrict__ lf,
-                                const float* __restrict__ df,
-                                int64_t df_stride,
-                                const float* __restrict__ dj,
-                                int64_t dj_plane, int64_t dj_stride,
-                                float* __restrict__ dpos, int Lw, int64_t N,
-                                int W, int jac_lo, int Fj) {
-  const int64_t n_cells = (int64_t)Lw * N;
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_cells) return;
-  const int l = (int)(c / N);
-  const int64_t n = c - (int64_t)l * N;
-  const float lx = lf[c], ly = lf[n_cells + c], lz = lf[2 * n_cells + c];
-  const int r = rows[c];
-  float g[3] = {0.f, 0.f, 0.f};
-  if (ingp_local_ok(lx, ly, lz) && r >= 0 && r < n_rows) {
-    const float fr[3] = {lf[3 * n_cells + c], lf[4 * n_cells + c],
-                         lf[5 * n_cells + c]};
-    const float sc = lf[6 * n_cells + c];
-    float dfv[F], djv[3][F];
-    const float* dfc = df + n * df_stride + (int64_t)l * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) dfv[f] = dfc[f];
-    if (JAC) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float* djc = dj + k * dj_plane + n * dj_stride + (int64_t)l * Fj;
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          djv[k][f] = (f >= jac_lo && f < jac_lo + Fj) ? djc[f - jac_lo]
-                                                       : 0.f;
-      }
-    }
-    const T* row = table + (int64_t)r * W;
-    const int ix = (int)lx, iy = (int)ly, iz = (int)lz;
-#pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
-      const int o[3] = {corner >> 2, (corner >> 1) & 1, corner & 1};
-      float v[F];
-      ingp_load_point<T, F>(
-          row + (9 * (ix + o[0]) + 3 * (iy + o[1]) + (iz + o[2])) * F, v);
-      float s_df = 0.f, s_j[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        s_df = fmaf(v[f], dfv[f], s_df);
-        if (JAC) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) s_j[k] = fmaf(v[f], djv[k][f], s_j[k]);
-        }
-      }
-      float w[3], d[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        w[k] = o[k] ? fr[k] : 1.f - fr[k];
-        d[k] = o[k] ? 1.f : -1.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int b = (a + 1) % 3, e = (a + 2) % 3;
-        float t = d[a] * w[b] * w[e] * s_df;
-        if (JAC)
-          t += sc * d[a] * (d[b] * w[e] * s_j[b] + d[e] * w[b] * s_j[e]);
-        g[a] += t;
-      }
-    }
-  }
-  dpos[c] = g[0];
-  dpos[n_cells + c] = g[1];
-  dpos[2 * n_cells + c] = g[2];
-}
-
-template <typename T, int F>
-int launch_bwd_pos(const void* table, int64_t n_rows, const void* rows,
-                   const void* lf, const void* df, int64_t df_stride,
-                   const void* dj, int64_t dj_plane, int64_t dj_stride,
-                   void* dpos, int Lw, int64_t N, int W, int with_jac,
-                   int jac_lo, int Fj, cudaStream_t s) {
-  const int64_t cells = (int64_t)Lw * N;
-  const unsigned blocks = (unsigned)((cells + kPosThreads - 1) / kPosThreads);
-  auto kernel = with_jac ? brick_reduce_bwd_pos_kernel<T, F, true>
-                         : brick_reduce_bwd_pos_kernel<T, F, false>;
-  kernel<<<blocks, kPosThreads, 0, s>>>(
-      (const T*)table, n_rows, (const int*)rows, (const float*)lf,
-      (const float*)df, df_stride, (const float*)dj, dj_plane, dj_stride,
-      (float*)dpos, Lw, N, W, jac_lo, Fj);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_bwd_pos(int F, const void* table, int64_t n_rows,
-                     const void* rows, const void* lf, const void* df,
-                     int64_t df_stride, const void* dj, int64_t dj_plane,
-                     int64_t dj_stride, void* dpos, int Lw, int64_t N, int W,
-                     int with_jac, int jac_lo, int Fj, cudaStream_t s) {
-#define POS_ARGS                                                        \
-  table, n_rows, rows, lf, df, df_stride, dj, dj_plane, dj_stride, dpos, \
-      Lw, N, W, with_jac, jac_lo, Fj, s
+template <bool POS>
+int dispatch_bwd_f(int F, int with_jac, int bf16, void* grad,
+                   int64_t n_rows, const void* rows, const void* lf,
+                   const void* df, int64_t df_stride, const void* dj,
+                   int64_t dj_plane, int64_t dj_stride, int Lw, int64_t N,
+                   int W, int jac_lo, int Fj, int vec, const void* table,
+                   void* dpos, cudaStream_t s) {
+  if ((int64_t)Lw * N == 0) return 0;
+  if (Lw > kK2Threads) return (int)cudaErrorInvalidValue;
+#define ARGS with_jac, bf16, grad, n_rows, rows, lf, df, df_stride, dj, \
+             dj_plane, dj_stride, Lw, N, W, jac_lo, Fj, vec, table, dpos, s
   switch (F) {
-    case 2: return launch_bwd_pos<T, 2>(POS_ARGS);
-    case 4: return launch_bwd_pos<T, 4>(POS_ARGS);
-    case 8: return launch_bwd_pos<T, 8>(POS_ARGS);
-    case 16: return launch_bwd_pos<T, 16>(POS_ARGS);
+    case 2: return dispatch_bwd<2, POS>(ARGS);
+    case 4: return dispatch_bwd<4, POS>(ARGS);
+    case 8: return dispatch_bwd<8, POS>(ARGS);
+    case 16: return dispatch_bwd<16, POS>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef POS_ARGS
+#undef ARGS
 }
 
 }  // namespace
-
-// table (n_rows, W) of dtype t_bf16 ? bf16 : f32; rows (Lw, N) int32;
-// lf (8, Lw, N) f32; df (N, Lw*F) f32 with row stride df_stride floats;
-// dj (3, N, Lw*Fj) f32 with plane and row strides dj_plane, dj_stride
-// floats, or null; dpos (3, Lw, N) f32, written. Returns
-// cudaGetLastError() after the launch (0 = success).
-extern "C" int ingp_brick_reduce_bwd_pos(const void* table, int t_bf16,
-                                         int64_t n_rows, const void* rows,
-                                         const void* lf, const void* df,
-                                         int64_t df_stride, const void* dj,
-                                         int64_t dj_plane, int64_t dj_stride,
-                                         void* dpos, int Lw, int64_t N,
-                                         int W, int F, int with_jac,
-                                         int jac_lo, int Fj, void* stream) {
-  if ((int64_t)Lw * N == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return t_bf16
-             ? dispatch_bwd_pos<__nv_bfloat16>(F, table, n_rows, rows, lf,
-                                               df, df_stride, dj, dj_plane,
-                                               dj_stride, dpos, Lw, N, W,
-                                               with_jac, jac_lo, Fj, s)
-             : dispatch_bwd_pos<float>(F, table, n_rows, rows, lf, df,
-                                       df_stride, dj, dj_plane, dj_stride,
-                                       dpos, Lw, N, W, with_jac, jac_lo, Fj,
-                                       s);
-}
 
 // grad (n_rows, W) f32, 16-byte aligned rows, accumulated into; rows
 // (Lw, N) int32; lf (8, Lw, N) f32; df (N, Lw*F) f32 with row stride
@@ -638,19 +608,26 @@ extern "C" int ingp_brick_reduce_bwd(void* grad, int64_t n_rows,
                                      int W, int F, int with_jac, int jac_lo,
                                      int Fj, int bf16, int vec,
                                      void* stream) {
-  if ((int64_t)Lw * N == 0) return 0;
-  if (Lw > kK2Threads) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define ARGS with_jac, bf16, grad, n_rows, rows, lf, df, df_stride, dj, \
-             dj_plane, dj_stride, Lw, N, W, jac_lo, Fj, vec, s
-  switch (F) {
-    case 2: return dispatch_bwd<2>(ARGS);
-    case 4: return dispatch_bwd<4>(ARGS);
-    case 8: return dispatch_bwd<8>(ARGS);
-    case 16: return dispatch_bwd<16>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef ARGS
+  return dispatch_bwd_f<false>(F, with_jac, bf16, grad, n_rows, rows, lf,
+                               df, df_stride, dj, dj_plane, dj_stride, Lw,
+                               N, W, jac_lo, Fj, vec, nullptr, nullptr,
+                               (cudaStream_t)stream);
+}
+
+// ingp_brick_reduce_bwd, and in the same pass each cell's position
+// cotangent: table (n_rows, W), the storage the forward read, bf16 when
+// bf16 else f32, 16-byte aligned rows, W a multiple of 8; dpos (3, Lw, N)
+// f32, written.
+extern "C" int ingp_brick_reduce_bwd_and_pos(
+    void* grad, const void* table, int64_t n_rows, const void* rows,
+    const void* lf, const void* df, int64_t df_stride, const void* dj,
+    int64_t dj_plane, int64_t dj_stride, void* dpos, int Lw, int64_t N,
+    int W, int F, int with_jac, int jac_lo, int Fj, int bf16, int vec,
+    void* stream) {
+  return dispatch_bwd_f<true>(F, with_jac, bf16, grad, n_rows, rows, lf, df,
+                              df_stride, dj, dj_plane, dj_stride, Lw, N, W,
+                              jac_lo, Fj, vec, table, dpos,
+                              (cudaStream_t)stream);
 }
 
 // table (n_rows, W) of dtype t_bf16 ? bf16 : f32; rows (Lw, N) int32;

@@ -13,7 +13,9 @@ probe_rows.cu), at the probe's three cases:
 
 Its XLA half (`xla_probe`: `t.at[i].get` and `.at[i].add` into an f32
 table at ten row layouts, 512 MB of useful rows each) becomes the
-library calls `t[i]` and `index_add_`, timed beside it. On the card a
+library calls `t[i]` and `index_add_`, timed beside it. The kernel and
+`t[i]` are also timed from CUDA graphs, without the host's dispatch of
+each call. On the card a
 row is a row: the (8, 128) and (16, 128) tiles of the TPU's layouts
 are only their row width here.
 
@@ -104,7 +106,7 @@ def cases(device, seed: int = 0, shapes=CASES) -> list:
             lambda t=table, i=idx: row_gather_plain(t, i),
             lambda t=table, i=idx: t[i], "t[i]",
             n * 4 + 2 * n * row_bytes, 0, "equal", SYMBOL, rows=n,
-            row_bytes=row_bytes))
+            row_bytes=row_bytes, graph=True))
     return out
 
 

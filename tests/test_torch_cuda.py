@@ -529,34 +529,84 @@ def test_k2_bwd_tiles_bitwise(cuda, bf16, Lw, N, F, window, with_dj):
     assert torch.equal(out.cpu(), ref)
 
 
+def _quiet(args, F, Fj):
+    """Zero the cotangents of every 5th sample at one level (l = n/5 mod
+    Lw) in place, through the column-slice views; returns the (Lw, N)
+    mask of those cells."""
+    rows, _, df, dj = args
+    Lw, N = rows.shape
+    n = torch.arange(0, N, 5)
+    lv = (n // 5) % Lw
+    df.unflatten(1, (Lw, F))[n.to(df.device), lv.to(df.device)] = 0.0
+    if dj is not None:
+        dj.unflatten(2, (Lw, Fj))[:, n.to(dj.device), lv.to(dj.device)] = 0.0
+    mask = torch.zeros((Lw, N), dtype=torch.bool)
+    mask[lv, n] = True
+    return mask
+
+
+def _new_launches(before):
+    return {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+            if v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("F,window,with_dj", [
-    (8, (0, None), True), (4, (1, 3), True), (8, (0, None), False),
-    (2, (0, None), True), (16, (0, 8), True), (16, (0, 8), False)])
-def test_k2_bwd_pos_matches_plain(cuda, dtype, F, window, with_dj):
-    """The K2 backward's position-cotangent variant: strided cotangents,
-    -9 cells and rows outside the table (exact zeros), jacobian windows,
-    f32 and bf16 tables, ragged N; one launch each."""
+    (2, (0, None), True), (4, (1, 3), True), (8, (0, None), True),
+    (8, (0, None), False), (16, (0, 8), True), (16, (0, 8), False)])
+def test_k2_bwd_and_pos_matches_plain(cuda, dtype, F, window, with_dj):
+    """K2 backward's position-cotangent variant, one launch for the table
+    gradient and dpos: the gradient within 1e-5 of the plain version's
+    largest value (the atomics add in any order), dpos within 1e-5 of
+    its largest value; exact zeros on cells with all-zero cotangents,
+    cells marked -9 and rows outside the table. Lw = 9 (no divisor of
+    32, a ragged last tile), column-slice cotangents, f32 and bf16
+    storage, jacobian windows."""
     rng = np.random.default_rng(13)
     jac_lo, jac_hi = window
     Fj = (F if jac_hi is None else jac_hi) - jac_lo
-    Lw, N, R = 5, 3001, 400
+    Lw, N, R, W = 9, 3001, 400, 32 * F
     on = _k2b_case(rng, Lw, N, F, Fj, R, False, with_dj)
-    table = torch.from_numpy(rng.normal(size=(R, 32 * F)).astype(
+    table = torch.from_numpy(rng.normal(size=(R, W)).astype(
         np.float32)).to(dtype)
-    ref = k2.brick_reduce_bwd_pos_plain(table, *on("cpu"), F, jac_lo,
-                                        jac_hi)
-    n0 = build.LAUNCHES["ingp_brick_reduce_bwd_pos"]
-    out = k2.brick_reduce_bwd_pos(table.to(cuda), *on(cuda), F, jac_lo,
-                                  jac_hi)
+    bf16 = dtype == torch.bfloat16
+    cpu, dev = on("cpu"), on(cuda)
+    quiet = _quiet(cpu, F, Fj)
+    _quiet(dev, F, Fj)
+    assert not dev[2].is_contiguous()
+    ref_g = k2.brick_reduce_bwd_plain(torch.zeros(R, W), *cpu, F, jac_lo,
+                                      jac_hi, bf16)
+    ref_p = k2.brick_reduce_bwd_pos_plain(table, *cpu, F, jac_lo, jac_hi)
+    before = dict(build.LAUNCHES)
+    grad = torch.zeros((R, W), device=cuda)
+    dpos = k2.brick_reduce_bwd_and_pos(grad, table.to(cuda), *dev, F,
+                                       jac_lo, jac_hi, bf16)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["ingp_brick_reduce_bwd_pos"] == n0 + 1
-    scale = float(ref.abs().max())
+    assert _new_launches(before) == {"ingp_brick_reduce_bwd_and_pos": 1}
+    _close(grad, ref_g)
+    scale = float(ref_p.abs().max())
     assert scale > 0
-    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * scale + 1e-12
-    rows, lf = on("cpu")[:2]
-    dead = (lf[0] < 0) | (rows >= R)
-    assert dead.any() and not bool(out.cpu()[:, dead].any())
+    assert float((dpos.cpu() - ref_p).abs().max()) <= 1e-5 * scale
+    rows, lf = cpu[:2]
+    for dead in (quiet, lf[0] < 0, rows >= R):
+        assert dead.any() and not bool(dpos.cpu()[:, dead].any())
+
+
+def test_k2_bwd_and_pos_refuses(cuda):
+    """The variant reads bf16 storage exactly when it rounds the lane
+    cotangents to bf16, of the gradient's shape: anything else raises
+    and launches nothing."""
+    rng = np.random.default_rng(15)
+    args = _k2b_case(rng, 4, 300, 8, 8, 40, False, True)(cuda)
+    grad = torch.zeros((40, 256), device=cuda)
+    before = dict(build.LAUNCHES)
+    for storage, bf16 in ((torch.zeros((40, 256), device=cuda), True),
+                          (torch.zeros((40, 256), device=cuda,
+                                       dtype=torch.bfloat16), False),
+                          (torch.zeros((41, 256), device=cuda), False)):
+        with pytest.raises(ValueError):
+            k2.brick_reduce_bwd_and_pos(grad, storage, *args, 8, bf16=bf16)
+    assert _new_launches(before) == {}
 
 
 @pytest.mark.parametrize("with_dj", [True, False])

@@ -162,8 +162,8 @@ def test_k2_f16_position_cotangent_matches_ad():
     _, vjp = jax.vjp(lambda fr: jb.reduce_feats_jac(cfg, g, local, fr, n, 0,
                                                     FD), lf[3:6])
     ref = N(vjp((jnp.asarray(df), jnp.asarray(djw)))[0])
-    out = k2.brick_reduce_bwd_pos(T(table), T(rows), T(lf), T(df), T(djw),
-                                  F, 0, FD)
+    out = k2.brick_reduce_bwd_pos_plain(T(table), T(rows), T(lf), T(df),
+                                        T(djw), F, 0, FD)
     ok = (lf[0:3] >= 0).all(0)
     close_f32(N(out)[:, ok], ref[:, ok])
     assert not N(out)[:, ~ok].any()
@@ -262,16 +262,16 @@ def test_fused_pose_refinement_step_runs():
     psys = tt.NeRFSystem(h, tr, device="cpu", params=params)
     psys.grid = grid
     calls = []
-    real = k2.brick_reduce_bwd_pos
+    real = k2.brick_reduce_bwd_and_pos
 
     def spy(*a, **k):
-        calls.append(a[5] if len(a) > 5 else k["F"])
+        calls.append(a[6] if len(a) > 6 else k["F"])
         return real(*a, **k)
-    k2.brick_reduce_bwd_pos = spy
+    k2.brick_reduce_bwd_and_pos = spy
     try:
         aux, grads = psys.loss_and_grads(batch, T(batch["noise"]))
     finally:
-        k2.brick_reduce_bwd_pos = real
+        k2.brick_reduce_bwd_and_pos = real
     assert calls and set(calls) == {F}
     assert all(float(g.abs().max()) > 0 for g in grads["ext"].values())
 

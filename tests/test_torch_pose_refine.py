@@ -1,6 +1,7 @@
 """Port parity of pose refinement (`optimize_ext`) against the JAX
 package on CPU: the position cotangent of K2's backward (the plain form
-of `ingp_brick_reduce_bwd_pos`) against JAX AD of the XLA reduce, one
+of the position cotangent that `ingp_brick_reduce_bwd_and_pos` writes
+beside K2's table backward) against JAX AD of the XLA reduce, one
 training step's loss and every gradient leaf (`ext`'s dR and dT
 included) against JAX's `train_step` on the hash, per-sample brick and
 stream encoders, three steps' losses and `ext` update, the optimiser
@@ -225,9 +226,9 @@ def test_pos_cotangent_plain_matches_ad_of_reduce_feats_jac(window,
     (ref,) = vjp((jnp.asarray(df), jnp.asarray(dj)) if with_jac
                  else jnp.asarray(df))
     storage = T(table).to(torch.bfloat16) if bf16 else T(table)
-    out = N(k2.brick_reduce_bwd_pos(storage, T(rows), T(lf), T(df),
-                                    T(dj) if with_jac else None, F, jac_lo,
-                                    jac_hi))
+    out = N(k2.brick_reduce_bwd_pos_plain(storage, T(rows), T(lf), T(df),
+                                          T(dj) if with_jac else None, F,
+                                          jac_lo, jac_hi))
     ref = N(ref)
     np.testing.assert_allclose(out, ref, rtol=1e-5,
                                atol=1e-6 * np.abs(ref).max())
@@ -241,12 +242,47 @@ def test_pos_cotangent_rows_outside_the_table_and_chunking(monkeypatch):
     lf = T(np.concatenate([loc, frac, np.full((1, Lw, n), 9.0),
                            np.zeros((1, Lw, n))], 0).astype(np.float32))
     rows[:, 1::13] = 10 ** 6
-    ref = N(k2.brick_reduce_bwd_pos(T(table), T(rows), lf, T(df), T(dj), F))
+    ref = N(k2.brick_reduce_bwd_pos_plain(T(table), T(rows), lf, T(df),
+                                          T(dj), F))
     assert not ref[:, :, 1::13].any()
     monkeypatch.setattr(k2, "PLAIN_CHUNK", 16)
     np.testing.assert_array_equal(
-        N(k2.brick_reduce_bwd_pos(T(table), T(rows), lf, T(df), T(dj), F)),
+        N(k2.brick_reduce_bwd_pos_plain(T(table), T(rows), lf, T(df), T(dj),
+                                        F)),
         ref)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bwd_and_pos_cpu_path_is_both_plain_versions(bf16):
+    """The fused wrapper on CPU tensors: the table gradient of
+    brick_reduce_bwd_plain and the position cotangent of
+    brick_reduce_bwd_pos_plain, bit for bit; exact zeros on cells marked
+    -9, on rows outside the table and on cells whose cotangents are all
+    zero."""
+    F, Lw, n, R = 4, 3, 200, 60
+    table, rows, loc, frac, df, dj = _pos_case(8, Lw, n, F, R)
+    rows[:, 3::11] = R + 5
+    df = df.reshape(n, Lw, F)
+    dj = dj.reshape(3, n, Lw, F)
+    df[::5, 1] = 0.0
+    dj[:, ::5, 1] = 0.0
+    df, dj = df.reshape(n, -1), dj.reshape(3, n, -1)
+    lf = T(np.concatenate([loc, frac, np.full((1, Lw, n), 5.0),
+                           np.zeros((1, Lw, n))], 0).astype(np.float32))
+    storage = T(table).to(torch.bfloat16) if bf16 else T(table)
+    grad = torch.zeros((R, 32 * F))
+    dpos = k2.brick_reduce_bwd_and_pos(grad, storage, T(rows), lf, T(df),
+                                       T(dj), F, bf16=bf16)
+    ref_g = k2.brick_reduce_bwd_plain(torch.zeros((R, 32 * F)), T(rows), lf,
+                                      T(df), T(dj), F, bf16=bf16)
+    ref_p = k2.brick_reduce_bwd_pos_plain(storage, T(rows), lf, T(df),
+                                          T(dj), F)
+    assert torch.equal(grad, ref_g) and torch.equal(dpos, ref_p)
+    assert float(ref_g.abs().max()) > 0 and float(ref_p.abs().max()) > 0
+    quiet = np.zeros((Lw, n), bool)
+    quiet[1, ::5] = True
+    for dead in (loc[0] == -9.0, rows >= R, quiet):
+        assert dead.any() and not N(dpos)[:, dead].any()
 
 
 def test_pos_variant_runs_only_when_lf_needs_a_gradient(monkeypatch):
@@ -254,8 +290,8 @@ def test_pos_variant_runs_only_when_lf_needs_a_gradient(monkeypatch):
     lf that requires a gradient: runs without pose refinement run the
     table backward alone."""
     calls = []
-    real = k2.brick_reduce_bwd_pos
-    monkeypatch.setattr(k2, "brick_reduce_bwd_pos",
+    real = k2.brick_reduce_bwd_and_pos
+    monkeypatch.setattr(k2, "brick_reduce_bwd_and_pos",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     from ingp_tpu_torch.ops.gather import table_read
     F, Lw, n = 4, 2, 64
@@ -273,8 +309,8 @@ def test_pos_variant_runs_only_when_lf_needs_a_gradient(monkeypatch):
         assert (fr.grad is not None) == pos
         master.grad = None
     np.testing.assert_allclose(
-        N(fr.grad), N(k2.brick_reduce_bwd_pos(T(table), T(rows), lf.detach(),
-                                              T(df), None, F)), rtol=0)
+        N(fr.grad), N(k2.brick_reduce_bwd_pos_plain(
+            T(table), T(rows), lf.detach(), T(df), None, F)), rtol=0)
 
 
 # ------------------------------------------------------- the whole step
